@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Run the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
 
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
-2. build: nvcc compiles ``pysfm_tpu_torch/csrc/*.cu`` for sm_90a;
-3. kernel against its plain PyTorch version on the card: every camera
-   model x robust kernel on a small scene with a ragged observation count,
-   and the main-path shape (50 cameras, 10k points, ~164k observations);
-4. main path: ``solve()`` with the default ``LMConfig`` route (dense
-   component-major Schur LM, ``jac_backend="auto"``) for 30 iterations on
-   the 50-camera / 10k-point Huber scene, checked against the plain route
-   on the card and, on a small scene, against the f64 plain route on the
-   host; then LM iterations/s and kernel times.
+2. build: nvcc compiles ``pysfm_tpu_torch/csrc/*.cu`` for sm_90a, one
+   process per source, all at once;
+3. [kernel] the projection kernel against its plain PyTorch version: every
+   camera model x robust kernel on a small scene with a ragged observation
+   count, and the dense path's shape (50 cameras, 10k points, ~164k
+   observations);
+4. [main] the dense path: ``solve()`` with the default ``LMConfig`` route
+   (dense component-major Schur LM) for 30 iterations on the 50-camera /
+   10k-point Huber scene, checked against the plain route on the card and,
+   on a small scene, against the f64 route on the host; then [speed];
+5. [spmv kernels] the five kernels of the pcg route (K_E ``build_eqs``,
+   K_C ``cost``, ``hcpT_x``, ``hcp_w``, K_H ``precond_diag``) against their
+   plain versions on small ragged scenes (also one with C > 128): 3 camera
+   models x 3 robust kernels, f32 and bf16 coupling rows; two launches must
+   agree bit for bit, and f64 tensors must be refused;
+6. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
+   "pcg", cg_forcing="ew", ...), gops=make_grouped_ops(...))`` on the
+   bench.py headline scene (the same 50 / 10k scene), 30 iterations, with
+   the exact launch count of every kernel checked against the LM and CG
+   logs, the final cost against the plain route on the card and, on a small
+   scene, against the f64 host route; then a torch.profiler trace of one
+   solve (device idle share) and each kernel's time at that shape;
+7. [pcg venice] the same route on the Venice-scale synthetic BAL scene
+   (1712 cameras, 1M points, ~5M observations): kernels against plain at
+   that shape, their times, 18 LM iterations with bench/venice.py's
+   settings, and a torch.profiler trace of them.
 
 The second-to-last lines are the card's ``nvidia-smi`` name and power
-limit and one JSON object describing each kernel; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-``pysfm_tpu_torch`` package beside this script, it exits non-zero and
-prints no result.  Imports nothing of JAX.
+limit and one JSON object describing each kernel (times at the dense and
+headline shapes); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the ``pysfm_tpu_torch`` package beside
+this script, it exits non-zero and prints no result.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -56,6 +75,32 @@ MAIN_SCENE = dict(
     outlier_px=40.0, visibility=0.3, robust="huber", robust_scale=2.0,
     seed=42, dtype=np.float32,
 )
+NO_TOL = dict(tol_grad=0.0, tol_cost_rel=0.0, tol_step=0.0)
+# The pcg route as bench.py drives it (headline) and as bench/venice.py
+# drives it at BAL scale.
+PCG_MAIN = dict(solver="pcg", cg_iters=25, cg_tol=1e-2, cg_forcing="ew", cg_q_tol=0.3)
+PCG_VENICE = dict(solver="pcg", cg_iters=25, cg_tol=1e-2, cg_forcing="ew", cg_q_tol=0.1)
+VENICE_SCENE = dict(
+    n_cameras=1712, n_points=1_000_000, mean_track=5.0, max_track=12,
+    robust="huber", robust_scale=2.0, noise_px=0.5, seed=4, dtype=np.float32,
+    with_truth=False, layout="cm",
+)
+VENICE_ITERS = 18  # bench/venice.py's default
+# Roofline of the H100 SXM (data sheet): device memory and non-tensor f32.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Operations of one projection + analytic Jacobian + weight (project_jac.cuh:
+# the 3x3 transform, the division, the 2x3 derivative, the 2x(6+intr) camera
+# and 2x3 point Jacobian rows), counted from the source.
+LINEARIZE_OPS = 110
+SPMV_KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag")
+SPMV_SOURCE = {
+    "build_eqs": ("pysfm_tpu_torch/csrc/eqs.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:929"),
+    "cost": ("pysfm_tpu_torch/csrc/eqs.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:1149"),
+    "hcpT_x": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:569"),
+    "hcp_w": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:654"),
+    "precond_diag": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:1046"),
+}
 
 
 def _import_port():
@@ -219,21 +264,43 @@ def phase_kernel_main(p, smi: str) -> dict:
 
     ms, plain_ms = _device_ms(kernel), _device_ms(plain)
     call_ms, plain_call_ms = _host_ms(kernel), _host_ms(plain)
+    C, P, M, cp = p.n_cameras, p.n_points, p.n_obs, p.cam_dof
+    nbytes = 4 * ((13 + p.intr.shape[1]) * C + 3 * P + 5 * M + 1      # inputs
+                  + (2 + 2 * cp + 6 + 1) * M)                         # outputs
+    bound_ms, bound_by = _bound(nbytes, LINEARIZE_OPS * M)
     print(f"[kernel] main-path shape M={p.n_obs}: max abs err {err:.3e}; device time "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events); "
-          f"call with host overhead kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms "
-          f"| {smi}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"call with host overhead kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}) | {smi}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
-def _solve_timed(p, cfg):
+def _solve_timed(p, cfg, gops=None):
     from pysfm_tpu_torch.solver import solve
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, stats = solve(p, cfg)
+    out, stats = solve(p, cfg, gops=gops)
     torch.cuda.synchronize()
     return out, stats, time.perf_counter() - t0
+
+
+def _reset_counts():
+    """Every kernel's launch count to 0 (just before a path is driven)."""
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
+
+    proj.LAUNCHES = 0
+    for k in spmv.LAUNCHES:
+        spmv.LAUNCHES[k] = 0
+
+
+def _bound(nbytes: float, ops: float):
+    """Least time on the card for the work: the larger of the bytes over the
+    memory rate and the f32 operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_main(p) -> int:
@@ -241,12 +308,15 @@ def phase_main(p) -> int:
     from pysfm_tpu_torch.solver import LMConfig, solve
     from pysfm_tpu_torch.solver.kernels import proj
 
+    from pysfm_tpu_torch.solver.kernels import spmv
+
     cfg = LMConfig(max_iters=N_ITERS, tol_grad=0.0, tol_cost_rel=0.0, tol_step=0.0)
-    proj.LAUNCHES = 0
+    _reset_counts()
     _, stats, _ = _solve_timed(p, cfg)
     launches = proj.LAUNCHES
-    if launches != N_ITERS:
-        raise AssertionError(f"main path launched the kernel {launches} times, expected {N_ITERS}")
+    if launches != N_ITERS or any(spmv.LAUNCHES.values()):
+        raise AssertionError(f"dense path launched the kernel {launches} times, expected "
+                             f"{N_ITERS}, and the pcg kernels {spmv.LAUNCHES} (expected none)")
     costs = stats.costs.cpu().numpy()
     if costs.shape != (N_ITERS + 1,) or not np.all(np.isfinite(costs)):
         raise AssertionError(f"bad cost log {costs}")
@@ -294,6 +364,380 @@ def phase_speed(p, smi: str) -> dict:
     return rates
 
 
+# --------------------------------------------------------------------------
+# The pcg route: five kernels (solver/kernels/spmv.py, csrc/eqs.cu, spmv.cu).
+# --------------------------------------------------------------------------
+
+
+def _bf16_ulp_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """bf16 tensors equal within one bf16 ulp (8 significant bits)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                      torch.zeros_like(mag))
+    return bool(((a - b).abs() <= ulp).all())
+
+
+def _eqs_args(p, ops):
+    from pysfm_tpu_torch.problem import cm
+
+    args = (ops, cm.cam_table(p), p.X3, p.robust_scale)
+    kw = dict(cp=p.cam_dof, model=p.camera_model, robust=p.robust,
+              n_cameras=p.n_cameras, n_points=p.n_points)
+    return args, kw
+
+
+def _spmv_inputs(p, ops, eqs, seed=0):
+    """Inputs of the three CG-side kernels as the pcg path gives them: the
+    coupling rows of the current linearization, a camera vector, a point
+    vector and the damped point-block inverses."""
+    from pysfm_tpu_torch.solver import scale
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((p.cam_dof, p.n_cameras), generator=g, device="cuda")
+    w3 = torch.randn((3, p.n_points), generator=g, device="cuda")
+    hinv6 = scale.sym6_inv(scale.augment6(eqs.hpp6, 1e-3)).contiguous()
+    return {"hcpT_x": (x,), "hcp_w": (w3, p.n_cameras),
+            "precond_diag": (hinv6, p.n_cameras)}
+
+
+def _spmv_pairs(p, ops, eqs, b_rows):
+    """{name: (kernel call, plain call)} for the five kernels on p."""
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    args, kw = _eqs_args(p, ops)
+    ckw = dict(model=p.camera_model, robust=p.robust)
+    ops_it = ops.replace(b_rows=b_rows)
+    vec = _spmv_inputs(p, ops, eqs)
+    pairs = {
+        "build_eqs": (lambda: spmv.build_eqs(*args, **kw),
+                      lambda: spmv.build_eqs_plain(*args, **kw)),
+        "cost": (lambda: spmv.cost(*args, **ckw), lambda: spmv.cost_plain(*args, **ckw)),
+    }
+    for name in ("hcpT_x", "hcp_w", "precond_diag"):
+        fn, plain = getattr(spmv, name), getattr(spmv, name + "_plain")
+        a = vec[name]
+        pairs[name] = (lambda fn=fn, a=a: fn(ops_it, *a, cp=p.cam_dof),
+                       lambda plain=plain, a=a: plain(ops_it, *a, cp=p.cam_dof))
+    return pairs
+
+
+def _flat(out):
+    """A kernel's outputs as a list of tensors (K_E: Hcc, g_c, hpp6, g_p,
+    b_rows)."""
+    if isinstance(out, tuple):
+        eqs, b_rows = out
+        return [eqs.Hcc, eqs.g_c, eqs.hpp6, eqs.g_p, b_rows]
+    return [out]
+
+
+def _check_pair(name, kernel, plain, bf16_rows):
+    """Kernel against plain on the same inputs, and two launches bit for
+    bit; returns the worst abs error.  bf16 rows are held to one bf16 ulp
+    (the two round their f32 values independently)."""
+    outs, outs2 = _flat(kernel()), _flat(kernel())
+    torch.cuda.synchronize()
+    refs = _flat(plain())
+    for a, a2 in zip(outs, outs2):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"{name}: two launches differ")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name}[{i}]: {a.shape} {a.dtype} != {b.shape} {b.dtype}")
+        if bf16_rows and a.dtype == torch.bfloat16:
+            if not _bf16_ulp_ok(a, b):
+                raise AssertionError(f"{name}: bf16 rows differ by more than one ulp")
+            continue
+        err, ok = _max_err([a], [b])
+        if not ok:
+            raise AssertionError(f"{name}[{i}]: kernel disagrees with plain, max err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def _kernels_vs_plain(p, ops):
+    """All five kernels against their plain versions on problem p; returns
+    {name: worst abs error}."""
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    bf16 = ops.rows_dtype == torch.bfloat16
+    args, kw = _eqs_args(p, ops)
+    eqs, b_rows = spmv.build_eqs(*args, **kw)
+    return {name: _check_pair(name, kernel, plain, bf16)
+            for name, (kernel, plain) in _spmv_pairs(p, ops, eqs, b_rows).items()}
+
+
+def phase_spmv_small() -> None:
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver.kernels import spmv
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops
+
+    worst = dict.fromkeys(SPMV_KERNELS, 0.0)
+    shapes = set()
+    for model in ("pose", "pose_k", "bal"):
+        for robust in ("gaussian", "huber", "cauchy"):
+            scenes = [(5, 101)] + ([(160, 700)] if robust == "huber" else [])
+            for C, P in scenes:
+                p = synthetic.make_bal_scene(
+                    C, P, mean_track=4.0, max_track=6, camera_model=model,
+                    robust=robust, robust_scale=2.0, noise_px=1.0, outlier_frac=0.1,
+                    seed=3, dtype=np.float32, with_truth=False, layout="cm",
+                ).problem
+                shapes.add((C, P, p.n_obs))
+                for rows in (torch.float32, torch.bfloat16):
+                    errs = _kernels_vs_plain(p, make_grouped_ops(p, rows_dtype=rows))
+                    worst = {k: max(worst[k], errs[k]) for k in worst}
+    p64 = synthetic.make_bal_scene(5, 101, seed=3, dtype=np.float64, with_truth=False,
+                                   layout="cm").problem
+    ops64 = make_grouped_ops(p64)
+    args, kw = _eqs_args(p64, ops64)
+    refused = 0
+    for call in (lambda: spmv.build_eqs(*args, **kw),
+                 lambda: spmv.cost(*args, model=p64.camera_model, robust=p64.robust),
+                 lambda: spmv.hcpT_x(ops64.replace(b_rows=torch.zeros(
+                     (3 * p64.cam_dof, p64.n_obs), dtype=torch.float64, device="cuda")),
+                     torch.zeros((p64.cam_dof, p64.n_cameras), dtype=torch.float64,
+                                 device="cuda"), cp=p64.cam_dof)):
+        try:
+            call()
+        except TypeError:
+            refused += 1
+    if refused != 3:
+        raise AssertionError("a pcg kernel wrapper accepted f64 CUDA tensors")
+    print(f"[spmv kernels] 3 models x 3 robust kernels, f32 and bf16 rows, scenes (C, P, M) "
+          f"{sorted(shapes)}: kernel == plain, max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (bound {KERNEL_TOL} x (max|ref|+1); bf16 rows within one ulp); two launches "
+          "bitwise equal; f64 refused")
+
+
+def _spmv_cost(name, p, ops, b_rows):
+    """(bytes moved, f32 operations) of one call on problem p: each input
+    read once, each output written once."""
+    C, P, M, cp = p.n_cameras, p.n_points, p.n_obs, p.cam_dof
+    rb = b_rows.element_size() * 3 * cp * M
+    ntri = cp * (cp + 1) // 2
+    if name == "build_eqs":
+        nbytes = (4 * ((13 + p.intr.shape[1]) * C + 3 * P + 6 * M + P + C + 3)
+                  + rb + 4 * (C * cp * cp + C * cp + 9 * P))
+        ops = M * (LINEARIZE_OPS + 4 * 3 * cp + 5 * (ntri + cp) + 5 * 9)
+    elif name == "cost":
+        nbytes = 4 * ((13 + p.intr.shape[1]) * C + 3 * P + 5 * M + 2)
+        ops = M * 40
+    elif name == "hcpT_x":
+        nbytes = rb + 4 * (cp * C + M + P + 1 + 3 * P)
+        ops = M * 2 * 3 * cp
+    elif name == "hcp_w":
+        nbytes = rb + 4 * (3 * P + 2 * M + C + 1 + cp * C)
+        ops = M * 2 * 3 * cp
+    else:
+        nbytes = rb + 4 * (6 * P + 2 * M + C + 1 + C * cp * cp)
+        ops = M * (5 * 3 * cp + 6 * ntri)
+    return nbytes, ops
+
+
+def _sparse_hcp(p, ops, b_rows):
+    """CSR tensors of Hcp [C*CP, 3P] and Hcp^T from the coupling rows: the
+    yardstick library call (torch.sparse) for the two products.  The port
+    never calls it."""
+    C, P, M, cp = p.n_cameras, p.n_points, p.n_obs, p.cam_dof
+    s = torch.arange(3, device="cuda").view(3, 1, 1)
+    d = torch.arange(cp, device="cuda").view(1, cp, 1)
+    rows = (ops.obs_cam.long().view(1, 1, M) * cp + d).expand(3, cp, M).reshape(-1)
+    cols = (ops.obs_pt.long().view(1, 1, M) * 3 + s).expand(3, cp, M).reshape(-1)
+    vals = b_rows.float().reshape(-1)
+    with warnings.catch_warnings():  # torch's notes that sparse CSR is beta
+        warnings.simplefilter("ignore", UserWarning)
+        hcp = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (C * cp, 3 * P))
+        hcpT = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals, (3 * P, C * cp))
+        return hcp.coalesce().to_sparse_csr(), hcpT.coalesce().to_sparse_csr()
+
+
+def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
+    """Every kernel against its plain version at this shape, then its device
+    time, the plain version's, the bound and (for the two products) the
+    torch.sparse call's; returns {name: stats}."""
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    args, kw = _eqs_args(p, ops)
+    eqs, b_rows = spmv.build_eqs(*args, **kw)
+    pairs = _spmv_pairs(p, ops, eqs, b_rows)
+    hcp, hcpT = _sparse_hcp(p, ops, b_rows)
+    vec = _spmv_inputs(p, ops, eqs)
+    x_flat = vec["hcpT_x"][0].T.reshape(-1, 1).contiguous()       # (c*CP + d)
+    w_flat = vec["hcp_w"][0].T.reshape(-1, 1).contiguous()        # (p*3 + s)
+    library = {"hcpT_x": lambda: torch.sparse.mm(hcpT, x_flat),
+               "hcp_w": lambda: torch.sparse.mm(hcp, w_flat)}
+    # The library call computes the same function: check it before timing.
+    u = pairs["hcpT_x"][0]()
+    y = pairs["hcp_w"][0]()
+    _, ok_u = _max_err([library["hcpT_x"]().reshape(-1, 3).T], [u])
+    _, ok_y = _max_err([library["hcp_w"]().reshape(-1, p.cam_dof).T], [y])
+    if not (ok_u and ok_y):
+        raise AssertionError(f"{label}: torch.sparse yardstick disagrees with the kernels")
+    out = {}
+    for name, (kernel, plain) in pairs.items():
+        err = _check_pair(name, kernel, plain, False)
+        ms, plain_ms = _device_ms(kernel, n), _device_ms(plain, n)
+        lib_ms = _device_ms(library[name], n) if name in library else None
+        bound_ms, bound_by = _bound(*_spmv_cost(name, p, ops, b_rows))
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+        lib = "" if lib_ms is None else f", torch.sparse {lib_ms:.4f} ms"
+        print(f"[{label}] {name} at C={p.n_cameras} P={p.n_points} M={p.n_obs}: max abs err "
+              f"{err:.3e}; device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; "
+              f"bound {bound_ms:.4f} ms ({bound_by}) | {smi}")
+    return out
+
+
+def _expected_launches(st, cfg) -> dict:
+    """Each kernel's launches implied by the LM and CG logs of one pcg solve
+    (block-Jacobi preconditioner, CG warm start, linearization reuse)."""
+    n = int(st.n_iters)
+    acc = st.accepted[:n].cpu().numpy()
+    cg = st.cg_iters[:n].cpu().numpy().astype(int)
+    if cfg.cg_precond_terms != 1 or not cfg.cg_warm_start or not cfg.reuse_linearization:
+        raise ValueError("the launch formula below assumes the default pcg options")
+    return {
+        "build_eqs": 1 + int(acc[:-1].sum()),   # first build + one after each accept
+        "cost": 1 + n,                          # initial cost + each candidate
+        "precond_diag": n,                      # one system build per iteration
+        # rhs, warm-start residual, one per CG iteration:
+        "hcp_w": int((2 + cg).sum()),
+        # warm-start residual, one per CG iteration, back-substitution:
+        "hcpT_x": int((2 + cg).sum()),
+    }
+
+
+def _pcg_solve_counted(p, cfg, gops, label):
+    """Drive the pcg path with the counts set to 0 just before and read just
+    after; check them against the logs.  Returns (stats, seconds, counts)."""
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
+
+    _reset_counts()
+    _, st, secs = _solve_timed(p, cfg, gops)
+    counts = dict(spmv.LAUNCHES)
+    expected = _expected_launches(st, cfg)
+    if counts != expected or proj.LAUNCHES:
+        raise AssertionError(f"{label}: launches {counts} (proj {proj.LAUNCHES}), "
+                             f"expected {expected} from the LM/CG logs")
+    costs = st.costs.cpu().numpy()
+    if not np.all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"{label}: bad cost log {costs}")
+    return st, secs, counts
+
+
+def phase_profile(p, cfg, gops, label, smi) -> None:
+    """One pcg solve under torch.profiler: device busy time over the traced
+    wall (the idle share), device kernels per LM iteration, and the kernels
+    that take the most device time.  Profiling slows the host, so the
+    traced wall is longer than an untraced solve."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _solve_timed(p, cfg, gops)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, st, secs = _solve_timed(p, cfg, gops)
+    n = int(st.n_iters)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms <= 0.0:
+        print(f"[{label} profile] the trace holds no device time: idle share not measured")
+        return
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[{label} profile] {n} LM iterations traced in {1e3 * secs:.1f} ms: device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (1e3 * secs):.3f}; "
+          f"{sum(e.count for e in dev) / n:.1f} device kernels per LM iteration; most "
+          "device time: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top)
+          + f" | {smi}")
+
+
+def phase_pcg_main(smi) -> dict:
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.problem import cm
+    from pysfm_tpu_torch.solver import LMConfig, solve
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops
+
+    p = cm.from_problem(synthetic.make_scene(**MAIN_SCENE, device="cuda").problem)
+    gops = make_grouped_ops(p)
+    cfg = LMConfig(max_iters=N_ITERS, **NO_TOL, **PCG_MAIN)
+    st, secs, counts = _pcg_solve_counted(p, cfg, gops, "pcg main")
+    n = int(st.n_iters)
+    costs = st.costs.cpu().numpy()
+    _, st_plain, secs_plain = _solve_timed(p, cfg)
+    c_plain = float(st_plain.costs[-1])
+    rel = abs(costs[-1] - c_plain) / abs(c_plain)
+    if not rel <= COST_RTOL:
+        raise AssertionError(f"pcg kernel route final cost {costs[-1]} vs plain {c_plain}")
+    # Best of 3, alternating routes (plain, kernel, kernel, plain, ...).
+    best = {"kernel": secs, "plain": secs_plain}
+    for order in (("kernel", "plain"), ("plain", "kernel"), ("kernel", "plain")):
+        for route in order:
+            _, _, t = _solve_timed(p, cfg, gops if route == "kernel" else None)
+            best[route] = min(best[route], t)
+
+    small = dict(n_cameras=6, n_points=300, noise_px=0.5, outlier_frac=0.05,
+                 outlier_px=40.0, robust="huber", robust_scale=2.0, seed=11)
+    small_cfg = LMConfig(max_iters=10, **NO_TOL, **PCG_MAIN)
+    ps = cm.from_problem(synthetic.make_scene(**small, dtype=np.float32, device="cuda").problem)
+    ph = cm.from_problem(synthetic.make_scene(**small, dtype=np.float64, device="cpu").problem)
+    c_card = float(solve(ps, small_cfg, gops=make_grouped_ops(ps))[1].costs[-1])
+    c_host = float(solve(ph, small_cfg)[1].costs[-1])
+    rel_small = abs(c_card - c_host) / abs(c_host)
+    if not rel_small <= COST_RTOL:
+        raise AssertionError(f"pcg small scene: card f32 {c_card} vs host f64 {c_host}")
+    cg = st.cg_iters[:n].cpu().numpy()
+    syncs = n + int(cg.sum()) + int((cg < cfg.cg_iters).sum())
+    print(f"[pcg main] solve(CMProblem, pcg/ew, gops) {n} iters, C={p.n_cameras} "
+          f"P={p.n_points} M={p.n_obs}: cost {costs[0]:.6e} -> {costs[-1]:.6e}, accepted "
+          f"{int(st.accepted.sum())}/{n}, CG iterations {cg.tolist()} (sum {int(cg.sum())}); "
+          f"launches {counts} == LM/CG logs; plain route {c_plain:.6e} (rel {rel:.2e}); "
+          f"small scene card f32 vs host f64 rel {rel_small:.2e}")
+    print(f"[pcg main] ms per LM iteration (best of 4 x {n} iters, host clock, synchronized): "
+          f"kernel route {1e3 * best['kernel'] / n:.3f}, plain route "
+          f"{1e3 * best['plain'] / n:.3f}; host syncs in the counted run {syncs} (one per LM "
+          f"iteration, one per CG iteration, one per CG exit before cg_iters) | {smi}")
+    phase_profile(p, cfg, gops, "pcg main", smi)
+    stats = phase_spmv_timing(p, gops, "pcg main", smi)
+    for name in SPMV_KERNELS:
+        stats[name]["launches"] = counts[name]
+        print(f"[pcg main] {name}: {counts[name] / n:.2f} launches per LM iteration")
+    return stats
+
+
+def phase_pcg_venice(smi) -> None:
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver import LMConfig
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops
+
+    t0 = time.perf_counter()
+    p = synthetic.make_bal_scene(**VENICE_SCENE, device="cuda").problem
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gops = make_grouped_ops(p)
+    torch.cuda.synchronize()
+    t_layout = time.perf_counter() - t0
+    print(f"[pcg venice] scene C={p.n_cameras} P={p.n_points} M={p.n_obs} built in "
+          f"{t_scene:.3f} s, kernel layout (make_grouped_ops) in {t_layout:.3f} s")
+    phase_spmv_timing(p, gops, "pcg venice", smi, n=10)
+    cfg = LMConfig(max_iters=VENICE_ITERS, **NO_TOL, **PCG_VENICE)
+    torch.cuda.reset_peak_memory_stats()
+    st, secs, counts = _pcg_solve_counted(p, cfg, gops, "pcg venice")
+    n = int(st.n_iters)
+    print(f"[pcg venice] {n} LM iterations: {1e3 * secs / n:.1f} ms per LM iteration "
+          f"(host clock, synchronized); "
+          f"cost curve {[float(f'{c:.6e}') for c in st.costs.cpu().numpy()]}; CG iterations "
+          f"{st.cg_iters.cpu().numpy().tolist()}; accepted {int(st.accepted.sum())}/{n}; "
+          f"launches {counts} == LM/CG logs; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+    for name in SPMV_KERNELS:
+        print(f"[pcg venice] {name}: {counts[name] / n:.2f} launches per LM iteration")
+    phase_profile(p, cfg, gops, "pcg venice", smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port has no CPU fallback here",
@@ -312,16 +756,27 @@ def main() -> int:
     kstats = phase_kernel_main(p, smi)
     launches = phase_main(p)
     phase_speed(p, smi)
+    phase_spmv_small()
+    pcg_stats = phase_pcg_main(smi)
+    phase_pcg_venice(smi)
 
-    print(smi)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "proj_cm",
         "route": "cuda",
         "source": "pysfm_tpu_torch/csrc/proj.cu",
         "replaces": "pysfm_tpu/solver/kernels/pallas_proj.py:214",
         "launches": launches,
         **kstats,
-    }]}))
+    }]
+    for name in SPMV_KERNELS:
+        source, replaces = SPMV_SOURCE[name]
+        st = pcg_stats[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": st["launches"],
+                        **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

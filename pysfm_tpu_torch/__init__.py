@@ -6,13 +6,16 @@ wherever a tensor is made, and numpy ``Generator``s for scene randomness.
 The JAX package stays the reference; ``tests/test_torch_*.py`` hold every
 ported module to it on the same inputs.
 
-Ported so far (the dense component-major LM slice):
+Ported so far (the dense component-major route and the pcg route):
 
 - ``geometry``  — SO(3), projection models with analytic Jacobians
-- ``problem``   — ``BundleProblem``, robust costs, ``from_numpy``
-- ``solver``    — dense-cm Schur LM; ``solver.kernels.proj`` is the
-  hand-written CUDA projection/Jacobian kernel (``csrc/``)
-- ``pipeline``  — synthetic scenes
+- ``problem``   — ``BundleProblem``, the component-major ``CMProblem``,
+  robust costs, ``from_numpy``
+- ``solver``    — dense-cm Schur LM and the matrix-free pcg LM;
+  ``solver.kernels`` holds the hand-written CUDA kernels (``csrc/``):
+  ``proj`` (projection/Jacobian) and ``spmv`` (normal equations, cost,
+  the products with Hcp, the block-Jacobi diagonal)
+- ``pipeline``  — synthetic scenes, up to the Venice-scale BAL scene
 - ``utils``     — precision policy, config, timing fences
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.

@@ -1,0 +1,68 @@
+// Helpers shared by the pcg route's kernels (eqs.cu, spmv.cu): the storage
+// type of the coupling rows, and a deterministic block-wide sum.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace pysfm {
+
+// Threads per block of every pcg-route kernel.
+constexpr int kBlock = 256;
+
+// Coupling rows b_rows [3*CP, M] are stored as f32 or bf16; all arithmetic
+// is f32.  The bf16 store rounds to nearest even, as torch's .to(bfloat16)
+// and JAX's astype(bfloat16) do.
+__device__ __forceinline__ float row_load(const float* p) { return *p; }
+__device__ __forceinline__ float row_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void row_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void row_store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Block-wide sum of NV per-thread values, in a fixed order: every warp
+// reduces by shuffles, lane 0 parks the warp's NV sums in shared memory,
+// and thread i < NV adds the warps' sums of value i in warp order.  No
+// atomics, so the result is the same bit for bit on every run.  Returns
+// the block total of value threadIdx.x to threads threadIdx.x < NV (0
+// elsewhere).  Every thread of the block calls it once; smem holds
+// kBlock / 32 * NV values.
+template <int NV, typename T>
+__device__ __forceinline__ T block_sum(const T (&acc)[NV], T* smem) {
+  constexpr int kWarps = kBlock / 32;
+  static_assert(NV <= kBlock, "more values than threads");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    T v = acc[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) smem[warp * NV + i] = v;
+  }
+  __syncthreads();
+  T total = T(0);
+  if (threadIdx.x < NV) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += smem[w * NV + threadIdx.x];
+  }
+  return total;
+}
+
+// (d, e), e <= d, of entry i of a packed lower triangle listed row by row:
+// (0,0), (1,0), (1,1), (2,0), ... (the order of scale._tri_pairs).
+__device__ __forceinline__ void tri_index(int i, int& d, int& e) {
+  d = 0;
+  while (i > d) {
+    i -= d + 1;
+    ++d;
+  }
+  e = i;
+}
+
+}  // namespace pysfm

@@ -2,8 +2,8 @@
 //
 // One __device__ function per camera model, shared by every kernel that
 // linearizes the reprojection error: the fused residual/Jacobian kernel in
-// proj.cu, and the grouped normal-equation and cost kernels of the pcg
-// route when they are ported.  The math is that of
+// proj.cu, and the normal-equation (K_E) and cost (K_C) kernels of the pcg
+// route in eqs.cu.  The math is that of
 // pysfm_tpu/solver/kernels/pallas_proj.py (_proj_rows and _kernel) and
 // pysfm_tpu/geometry/projection.py (project_with_jac):
 //
@@ -16,6 +16,8 @@
 // CP = 10), BAL (-p/z flip, f, k1, k2 optimized, CP = 9).  Everything is
 // f32 with IEEE division and square root: build without --use_fast_math.
 #pragma once
+
+#include <cstddef>
 
 #include <cuda_runtime.h>
 
@@ -132,6 +134,70 @@ __device__ __forceinline__ float robust_weight(float s, float c) {
     const float c2 = c * c;
     return 1.0f / (1.0f + s / c2);
   }
+}
+
+// Robust loss rho(s) of the squared residual norm s, knee c; the cost is
+// 0.5 * rho (pysfm_tpu/problem/robust.py: rho).
+template <int ROBUST>
+__device__ __forceinline__ float robust_rho(float s, float c) {
+  if constexpr (ROBUST == ROBUST_GAUSSIAN) {
+    return s;
+  } else if constexpr (ROBUST == ROBUST_HUBER) {
+    const float c2 = c * c;
+    return s <= c2 ? s : 2.0f * c * sqrtf(fmaxf(s, c2)) - c2;
+  } else {
+    const float c2 = c * c;
+    return c2 * log1pf(s / c2);
+  }
+}
+
+// One camera's parameters, read from the packed camera table of the pcg
+// route, ctab [Dc, C] with Dc = 13 + INTR (pysfm_tpu_torch/problem/cm.py:
+// cam_table): rows 0..8 R row-major, 9..11 t, 12.. intr, last row the free
+// flag (0 for a gauge-fixed camera).
+template <int MODEL>
+struct CamParams {
+  float R[9];
+  float t[3];
+  float intr[ModelTraits<MODEL>::INTR];
+  float free;
+};
+
+template <int MODEL>
+__device__ __forceinline__ void load_cam(const float* __restrict__ ctab, int C,
+                                         int c, CamParams<MODEL>& k) {
+  constexpr int NI = ModelTraits<MODEL>::INTR;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) k.R[i] = __ldg(ctab + i * C + c);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) k.t[i] = __ldg(ctab + (9 + i) * C + c);
+#pragma unroll
+  for (int i = 0; i < NI; ++i) k.intr[i] = __ldg(ctab + (12 + i) * C + c);
+  k.free = __ldg(ctab + (12 + NI) * C + c);
+}
+
+// Residual, analytic Jacobians (the camera part multiplied by the free
+// flag) and IRLS weight w_conf * rho'(|r|^2) of one observation of camera c
+// and point p, X3 [3, P] component-major.
+template <int MODEL, int ROBUST>
+__device__ __forceinline__ float linearize(const float* __restrict__ ctab, int C,
+                                           const float* __restrict__ X3, int P,
+                                           int c, int p, float u_obs, float v_obs,
+                                           float w_conf, float scale,
+                                           ProjJac<MODEL>& o) {
+  constexpr int CP = ModelTraits<MODEL>::CP;
+  CamParams<MODEL> k;
+  load_cam<MODEL>(ctab, C, c, k);
+  const size_t Ps = static_cast<size_t>(P);
+  const float X[3] = {__ldg(X3 + p), __ldg(X3 + Ps + p), __ldg(X3 + 2 * Ps + p)};
+  project_jac<MODEL>(k.R, k.t, k.intr, X, u_obs, v_obs, o);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int d = 0; d < CP; ++d) o.Jc[i][d] *= k.free;
+  }
+  const float s = o.r[0] * o.r[0] + o.r[1] * o.r[1];
+  return w_conf * robust_weight<ROBUST>(s, scale);
 }
 
 }  // namespace pysfm

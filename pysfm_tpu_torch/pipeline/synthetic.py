@@ -1,12 +1,12 @@
 """Synthetic ground-truth scene generation.
 
-Port of ``look_at_rotation``, ``SyntheticScene`` and ``make_scene`` from
-:mod:`pysfm_tpu.pipeline.synthetic`: random points in a box, cameras on a
-ring looking at them, exact projections plus optional noise and outliers,
-then a perturbed initial guess.  The numpy generator is drawn from in the
-same order as the JAX package, so one seed gives the same scene; the exact
-projections are computed in f64 on the host and cast to ``dtype`` by
-``make_problem``.
+Port of ``look_at_rotation``, ``SyntheticScene``, ``make_scene`` and
+``make_bal_scene`` from :mod:`pysfm_tpu.pipeline.synthetic`: random points
+in a box, cameras on a ring looking at them, exact projections plus optional
+noise and outliers, then a perturbed initial guess.  The numpy generator is
+drawn from in the same order as the JAX package, so one seed gives the same
+scene; the exact projections are computed in f64 and cast to ``dtype`` by
+the problem constructors.
 """
 
 from __future__ import annotations
@@ -49,34 +49,11 @@ class SyntheticScene:
     outlier_frac: float
 
 
-def make_scene(
-    n_cameras: int = 2,
-    n_points: int = 100,
-    *,
-    camera_model: str = "pose",
-    robust: str = "gaussian",
-    robust_scale: float = 1.0,
-    noise_px: float = 0.0,
-    outlier_frac: float = 0.0,
-    outlier_px: float = 50.0,
-    perturb_rot: float = 0.02,
-    perturb_trans: float = 0.05,
-    perturb_point: float = 0.05,
-    visibility: float = 1.0,
-    radius: float = 10.0,
-    seed: int = 0,
-    dtype=np.float64,
-    device="cpu",
-) -> SyntheticScene:
-    """Cameras on a ring of ``radius`` looking at a unit-ish point cloud.
-
-    ``visibility`` < 1 drops a random subset of (camera, point) pairs so the
-    visibility graph is irregular.  Both problems are placed on ``device``.
-    """
-    rng = np.random.default_rng(seed)
+def _ring_cameras(rng, n_cameras, camera_model, radius):
+    """Cameras on a ring looking at the origin, and their intrinsics; draws
+    from ``rng`` in the JAX package's order (centre heights, then BAL focal
+    lengths)."""
     flip_z = camera_model == "bal"
-
-    X = rng.uniform(-2.0, 2.0, size=(n_points, 3))
     angles = 2.0 * np.pi * np.arange(n_cameras) / max(n_cameras, 3)
     centers = np.stack(
         [
@@ -90,7 +67,6 @@ def make_scene(
         [look_at_rotation(c, np.zeros(3), flip_z) for c in centers], axis=0
     )
     t = -np.einsum("cij,cj->ci", R, centers)
-
     if camera_model == "bal":
         intr = np.stack(
             [
@@ -110,6 +86,134 @@ def make_scene(
             ],
             axis=-1,
         )
+    return R, t, intr
+
+
+def make_bal_scene(
+    n_cameras: int = 1712,
+    n_points: int = 1_000_000,
+    *,
+    mean_track: float = 5.0,
+    max_track: int = 12,
+    camera_model: str = "pose",
+    robust: str = "gaussian",
+    robust_scale: float = 1.0,
+    noise_px: float = 0.0,
+    outlier_frac: float = 0.0,
+    outlier_px: float = 50.0,
+    perturb_rot: float = 0.01,
+    perturb_trans: float = 0.02,
+    perturb_point: float = 0.02,
+    radius: float = 10.0,
+    seed: int = 0,
+    dtype=np.float32,
+    with_truth: bool = True,
+    layout: str = "std",
+    device="cuda",
+) -> SyntheticScene:
+    """BAL/Venice-scale scene (1.7k cameras, 1M points by default).
+
+    Port of :func:`pysfm_tpu.pipeline.synthetic.make_bal_scene`, same draw
+    order.  Each point draws a track length in [2, max_track] (mean
+    ``mean_track``) and observes a contiguous window of cameras on the ring,
+    so the all-pairs visibility grid never exists.  ``with_truth=False``
+    skips the ground-truth problem; ``layout="cm"`` emits
+    :class:`~pysfm_tpu_torch.problem.cm.CMProblem` instead of
+    :class:`BundleProblem`.  The exact projections are computed in f64 on
+    ``device`` (the card unless the caller asks for the CPU), where the
+    problems are placed too.
+    """
+    if layout not in ("std", "cm"):
+        raise ValueError(f"unknown layout {layout!r}")
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(n_points, 3))
+    R, t, intr = _ring_cameras(rng, n_cameras, camera_model, radius)
+
+    # Track lengths: 2 + Poisson(mean - 2), clipped to max_track; window
+    # start per point, slots index consecutive cameras (mod C).
+    k = 2 + rng.poisson(max(mean_track - 2.0, 0.0), size=n_points)
+    k = np.minimum(k, max_track)
+    start = rng.integers(0, n_cameras, size=n_points)
+    pt_idx = np.repeat(np.arange(n_points, dtype=np.int64), k)
+    offs = np.arange(max_track)
+    grid_mask = offs[None, :] < k[:, None]                  # [P, max_track]
+    cam_grid = (start[:, None] + offs[None, :]) % n_cameras
+    cam_idx = cam_grid[grid_mask].astype(np.int64)
+
+    # Exact projections, in chunks, with the small camera and point tables
+    # on the device and the gathers done there.
+    M = cam_idx.shape[0]
+    uv = np.empty((M, 2), dtype=np.float64)
+    Rd, td, intrd, Xd = (torch.from_numpy(a).to(device) for a in (R, t, intr, X))
+    chunk = 1 << 20
+    for lo in range(0, M, chunk):
+        hi = min(lo + chunk, M)
+        ci = torch.from_numpy(cam_idx[lo:hi]).to(device)
+        pi = torch.from_numpy(pt_idx[lo:hi]).to(device)
+        uv[lo:hi] = projection.project(
+            camera_model, Rd[ci], td[ci], intrd[ci], Xd[pi]
+        ).cpu().numpy()
+    if noise_px > 0:
+        uv += rng.normal(scale=noise_px, size=uv.shape)
+    if outlier_frac > 0:
+        n_out = int(outlier_frac * M)
+        which = rng.choice(M, size=n_out, replace=False)
+        uv[which] += rng.uniform(-outlier_px, outlier_px, size=(n_out, 2))
+
+    if layout == "cm":
+        from pysfm_tpu_torch.problem.cm import make_cm_problem as make
+    else:
+        make = make_problem
+    common = dict(
+        camera_model=camera_model, robust=robust, robust_scale=robust_scale,
+        dtype=dtype, device=device,
+    )
+    truth = (
+        make(R, t, intr, X, cam_idx, pt_idx, uv, **common)
+        if with_truth else None
+    )
+
+    dw = rng.normal(scale=perturb_rot, size=(n_cameras, 3))
+    dw[0] = 0.0
+    dt = rng.normal(scale=perturb_trans, size=(n_cameras, 3))
+    dt[0] = 0.0
+    R_pert = so3.exp(torch.from_numpy(dw)).numpy() @ R
+    t_pert = t + dt
+    X_pert = X + rng.normal(scale=perturb_point, size=X.shape)
+    problem = make(R_pert, t_pert, intr, X_pert, cam_idx, pt_idx, uv, **common)
+    return SyntheticScene(
+        truth=truth, problem=problem, noise_px=noise_px, outlier_frac=outlier_frac
+    )
+
+
+def make_scene(
+    n_cameras: int = 2,
+    n_points: int = 100,
+    *,
+    camera_model: str = "pose",
+    robust: str = "gaussian",
+    robust_scale: float = 1.0,
+    noise_px: float = 0.0,
+    outlier_frac: float = 0.0,
+    outlier_px: float = 50.0,
+    perturb_rot: float = 0.02,
+    perturb_trans: float = 0.05,
+    perturb_point: float = 0.05,
+    visibility: float = 1.0,
+    radius: float = 10.0,
+    seed: int = 0,
+    dtype=np.float64,
+    device="cuda",
+) -> SyntheticScene:
+    """Cameras on a ring of ``radius`` looking at a unit-ish point cloud.
+
+    ``visibility`` < 1 drops a random subset of (camera, point) pairs so the
+    visibility graph is irregular.  Both problems are placed on ``device``
+    (the card unless the caller asks for the CPU).
+    """
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(n_points, 3))
+    R, t, intr = _ring_cameras(rng, n_cameras, camera_model, radius)
 
     # All pairs, thinned by `visibility`; every point keeps >= 2 views so it
     # stays constrained.

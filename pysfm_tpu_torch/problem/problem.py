@@ -222,14 +222,15 @@ def from_numpy(
     arrays: dict,
     camera_model: str,
     robust: str,
-    device="cpu",
+    device="cuda",
     dtype=None,
 ) -> BundleProblem:
     """Build the port's problem from a ``BundleProblem``'s fields given as
     numpy arrays (``arrays[name]`` for every name in :data:`FIELDS`; extra
     keys are ignored).  Float fields take ``dtype`` (default: that of
     ``arrays["X"]``); index tables are int32 and masks bool, as in the
-    JAX package."""
+    JAX package.  The problem goes to the card unless the caller passes
+    ``device="cpu"``; without a card that raises, as torch does."""
     if dtype is None:
         dtype = np.asarray(arrays["X"]).dtype
     # np.array copies: the source may be a read-only view of a JAX array.
@@ -245,9 +246,10 @@ def from_numpy(
     )
 
 
-def make_problem(*args, device="cpu", **kwargs) -> BundleProblem:
+def make_problem(*args, device="cuda", **kwargs) -> BundleProblem:
     """Host-side: sorts observations by point, builds the padded
-    visibility tables, and places the problem on ``device``."""
+    visibility tables, and places the problem on ``device`` (the card
+    unless the caller asks for the CPU)."""
     a = prepare_problem_arrays(*args, **kwargs)
     a["robust_scale"] = np.asarray(a["robust_scale"])
     return from_numpy(a, a["camera_model"], a["robust"], device, a["dtype"])

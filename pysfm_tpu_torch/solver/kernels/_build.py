@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``pysfm_tpu_torch/csrc/*.cu`` into
-one shared library with a plain C interface, for ``sm_90a`` (Hopper), and
+At first use, ``nvcc`` compiles every ``pysfm_tpu_torch/csrc/*.cu`` for
+``sm_90a`` (Hopper), one process per source, all started together, links
+the objects into one shared library with a plain C interface, and
 ``ctypes`` loads it.  The library lands in ``build/`` at the root of the
 checkout, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  A failed build raises.
@@ -26,10 +27,9 @@ from typing import NamedTuple
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +41,27 @@ _SIGNATURES = {
     "pysfm_proj_cm": (
         ctypes.c_int,
         [ctypes.c_int, ctypes.c_int] + [_P] * 10 + [ctypes.c_int] + [_P] * 5,
+    ),
+    # cudaError_t pysfm_build_eqs(model, robust, rows_bf16, ctab, C, X3, P,
+    #     obs_cam, obs_pt, u, v, w, pt_ptr, cam_ptr, cam_perm, scale, M,
+    #     b_rows, Hcc, g_c, hpp6, g_p, stream)
+    "pysfm_build_eqs": (
+        ctypes.c_int,
+        [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 9
+        + [ctypes.c_int] + [_P] * 6,
+    ),
+    # cudaError_t pysfm_cost(model, robust, ctab, C, X3, P, obs_cam, obs_pt,
+    #     u, v, w, scale, M, partial, n_blocks, out, stream)
+    "pysfm_cost": (
+        ctypes.c_int,
+        [ctypes.c_int] * 2 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+        + [ctypes.c_int, _P, ctypes.c_int, _P, _P],
+    ),
+    # cudaError_t pysfm_spmv(op, cp, rows_bf16, b, vec, obs_idx, ptr,
+    #     cam_perm, C, P, M, out, stream)
+    "pysfm_spmv": (
+        ctypes.c_int,
+        [ctypes.c_int] * 3 + [_P] * 5 + [ctypes.c_int] * 3 + [_P] * 2,
     ),
 }
 
@@ -66,6 +87,23 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds, timeout: float):
+    """Run the commands in parallel; returns [(returncode, output)].  Every
+    process is ended before this returns, also on a timeout."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        return [(p.returncode, out) for p, out in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> BuildInfo:
     """Compile ``csrc/*.cu`` into ``build/`` unless an up-to-date library
@@ -79,22 +117,31 @@ def build() -> BuildInfo:
     if lib.exists():
         return BuildInfo(lib, 0.0, False, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(s) for s in sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    # Rename into place so a concurrent loader never sees a partial file.
-    os.replace(tmp, lib)
-    return BuildInfo(lib, seconds, True, proc.stdout + proc.stderr)
+    tmp_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        objs = [tmp_dir / f"{s.stem}.o" for s in sources]
+        compile_cmds = [
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(s)]
+            for s, o in zip(sources, objs)
+        ]
+        tmp_lib = tmp_dir / lib.name
+        link_cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)]
+        t0 = time.perf_counter()
+        log = ""
+        for cmds in (compile_cmds, [link_cmd]):
+            for cmd, (rc, out) in zip(cmds, _run_all(cmds, timeout=900)):
+                log += out
+                if rc != 0:
+                    raise RuntimeError(
+                        f"nvcc failed with code {rc}:\n{' '.join(cmd)}\n{out}"
+                    )
+        seconds = time.perf_counter() - t0
+        # Rename into place so a concurrent loader never sees a partial file.
+        os.replace(tmp_lib, lib)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return BuildInfo(lib, seconds, True, log)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,361 @@
+"""The pcg route's kernels: normal-equation build (K_E), robust cost (K_C),
+``Hcp^T x``, ``Hcp w`` and the block-Jacobi diagonal (K_H), each a CUDA
+kernel (``csrc/eqs.cu``, ``csrc/spmv.cu``) with its plain PyTorch version.
+
+Counterpart of ``pysfm_tpu/solver/kernels/pallas_spmv.py``.  The JAX
+package re-sorts the observations into a grouped stream
+(``problem/grouped.py``) because Mosaic's one fast gather is local to an
+(8, 128) register; on Hopper a thread gathers from L2 freely, so
+:class:`GroupedOps` here is CSR over the CMProblem's own point-sorted order:
+
+- ``pt_ptr [P+1]``: each point's observations are ``pt_ptr[p]:pt_ptr[p+1]``;
+- ``cam_perm [M]`` / ``cam_ptr [C+1]``: observation ids stably sorted by
+  camera, and each camera's range of them;
+- ``b_rows [3*CP, M]``: the per-iteration coupling rows, row ``s*CP + d``,
+  in the point-sorted order (exactly ``B_cm``), stored in ``rows_dtype``.
+
+The superstep (two-phase) TPU kernels K_A2 / K_B2 compute what K_A / K_B
+compute; one kernel here replaces each pair.  Every sum has a fixed order
+(a thread per point, or a block per camera with a fixed-shape reduction;
+no float atomics), so the kernels are bitwise repeatable.
+
+Dispatch is by device, nothing else: for CPU tensors every wrapper runs its
+plain version (sums with ``index_add_``, deterministic on the CPU); for CUDA
+tensors it launches the kernel (f32 arithmetic, f32 or bf16 rows) or
+raises.  :data:`LAUNCHES` counts kernel launches per wrapper.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from pysfm_tpu_torch.geometry import projection
+from pysfm_tpu_torch.problem import cm
+from pysfm_tpu_torch.problem import robust as robust_mod
+from pysfm_tpu_torch.solver import scale
+from pysfm_tpu_torch.solver.kernels.proj import _MODEL_ID, _ROBUST_ID, _check
+
+# Kernel launches in this process, per wrapper (each adds one per launch).
+KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_OP_ID = {"hcpT_x": 0, "hcp_w": 1, "precond_diag": 2}
+# Blocks of the cost kernel's first pass (grid-stride over observations).
+_COST_MAX_BLOCKS = 1024
+_BLOCK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedOps:
+    """Static CSR layout of one problem's observations, plus the coupling
+    rows of the current linearization (``b_rows``, None until built)."""
+
+    obs_cam: torch.Tensor    # [M] int32
+    obs_pt: torch.Tensor     # [M] int32, sorted
+    pt_ptr: torch.Tensor     # [P+1] int32
+    cam_ptr: torch.Tensor    # [C+1] int32
+    cam_perm: torch.Tensor   # [M] int32
+    u: torch.Tensor          # [M] measured pixel u
+    v: torch.Tensor          # [M] measured pixel v
+    w: torch.Tensor          # [M] confidence weight
+    rows_dtype: torch.dtype
+    b_rows: Optional[torch.Tensor] = None   # [3*CP, M] in rows_dtype
+
+    @property
+    def n_cameras(self) -> int:
+        return self.cam_ptr.shape[0] - 1
+
+    @property
+    def n_points(self) -> int:
+        return self.pt_ptr.shape[0] - 1
+
+    @property
+    def n_obs(self) -> int:
+        return self.obs_cam.shape[0]
+
+    def replace(self, **changes) -> "GroupedOps":
+        return dataclasses.replace(self, **changes)
+
+
+def _offsets(ids: torch.Tensor, n: int) -> torch.Tensor:
+    counts = torch.bincount(ids.long(), minlength=n)
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
+    ptr[1:] = torch.cumsum(counts, 0)
+    return ptr.to(torch.int32)
+
+
+def grouped_ops(obs_cam, obs_pt, n_cameras: int, n_points: int, u, v, w,
+                rows_dtype) -> GroupedOps:
+    """Build the CSR layout on the device of ``obs_cam``.  The observations
+    must be sorted by point, as a CMProblem's are."""
+    M = obs_cam.shape[0]
+    if M > 2**31 - _BLOCK:
+        raise ValueError(f"M={M} overflows the kernels' int32 observation index")
+    if M > 1 and bool((obs_pt[1:] < obs_pt[:-1]).any()):
+        raise ValueError("observations must be sorted by point")
+    cam_perm = torch.sort(obs_cam, stable=True).indices.to(torch.int32)
+    return GroupedOps(
+        obs_cam=obs_cam.to(torch.int32), obs_pt=obs_pt.to(torch.int32),
+        pt_ptr=_offsets(obs_pt, n_points), cam_ptr=_offsets(obs_cam, n_cameras),
+        cam_perm=cam_perm, u=u, v=v, w=w, rows_dtype=rows_dtype,
+    )
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True to launch the kernel (CUDA tensor), False for the plain version
+    (CPU tensor); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
+def _rows(ops: GroupedOps) -> torch.Tensor:
+    if ops.b_rows is None:
+        raise ValueError("ops.b_rows is not built (GroupedOps.replace(b_rows=...))")
+    return ops.b_rows
+
+
+def _check_ops(ops: GroupedOps, dev) -> None:
+    M, C, P = ops.n_obs, ops.n_cameras, ops.n_points
+    i32, f32 = torch.int32, torch.float32
+    for name, shape in (("obs_cam", (M,)), ("obs_pt", (M,)), ("pt_ptr", (P + 1,)),
+                        ("cam_ptr", (C + 1,)), ("cam_perm", (M,))):
+        _check(name, getattr(ops, name), i32, shape, dev)
+    for name in ("u", "v", "w"):
+        _check(name, getattr(ops, name), f32, (M,), dev)
+
+
+def _check_rows(ops: GroupedOps, cp: int, dev) -> Tuple[torch.Tensor, int]:
+    b = _rows(ops)
+    if b.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"b_rows is {b.dtype}; the CUDA kernels take f32 or bf16 rows")
+    _check("b_rows", b, b.dtype, (3 * cp, ops.n_obs), dev)
+    return b, int(b.dtype == torch.bfloat16)
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# K_E: normal equations + coupling rows.
+# --------------------------------------------------------------------------
+
+
+def build_eqs_plain(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model,
+                    robust, n_cameras, n_points):
+    """Plain version of :func:`build_eqs`: the per-observation rows of
+    ``scale._payload_rows`` reduced per camera and per point with
+    ``index_add_``."""
+    B, cam_rows, pt_rows = scale._payload_rows(
+        model, robust, robust_scale, ctab, X3, ops.obs_cam, ops.obs_pt,
+        ops.u, ops.v, ops.w,
+    )
+    n_tri = cp * (cp + 1) // 2
+    cred = torch.zeros((cam_rows.shape[0], n_cameras), dtype=B.dtype, device=B.device)
+    cred.index_add_(1, ops.obs_cam, cam_rows)
+    pred = torch.zeros((9, n_points), dtype=B.dtype, device=B.device)
+    pred.index_add_(1, ops.obs_pt, pt_rows)
+    eqs = scale.ScaleEqs(
+        Hcc=scale._unpack_sym(cred[:n_tri], cp), g_c=cred[n_tri:].T.contiguous(),
+        hpp6=pred[:6], g_p=pred[6:], B_cm=None,
+    )
+    return eqs, B.to(ops.rows_dtype)
+
+
+def _launch_build_eqs(ops, ctab, X3, robust_scale, cp, model, robust, C, P):
+    from pysfm_tpu_torch.solver.kernels import _build
+
+    dev = ctab.device
+    f32 = torch.float32
+    M = ops.n_obs
+    _check_ops(ops, dev)
+    _check("ctab", ctab, f32, (13 + projection.INTR_DIM[model], C), dev)
+    _check("X3", X3, f32, (3, P), dev)
+    _check("robust_scale", robust_scale, f32, (), dev)
+    if ops.rows_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rows_dtype {ops.rows_dtype}: the kernel stores f32 or bf16 rows")
+    b_rows = torch.empty((3 * cp, M), dtype=ops.rows_dtype, device=dev)
+    Hcc = torch.empty((C, cp, cp), dtype=f32, device=dev)
+    g_c = torch.empty((C, cp), dtype=f32, device=dev)
+    hpp6 = torch.empty((6, P), dtype=f32, device=dev)
+    g_p = torch.empty((3, P), dtype=f32, device=dev)
+    err = _build.library().pysfm_build_eqs(
+        _MODEL_ID[model], _ROBUST_ID[robust], int(ops.rows_dtype == torch.bfloat16),
+        ctab.data_ptr(), C, X3.data_ptr(), P,
+        ops.obs_cam.data_ptr(), ops.obs_pt.data_ptr(), ops.u.data_ptr(),
+        ops.v.data_ptr(), ops.w.data_ptr(), ops.pt_ptr.data_ptr(),
+        ops.cam_ptr.data_ptr(), ops.cam_perm.data_ptr(), robust_scale.data_ptr(), M,
+        b_rows.data_ptr(), Hcc.data_ptr(), g_c.data_ptr(), hpp6.data_ptr(),
+        g_p.data_ptr(), _stream(dev),
+    )
+    _launched("build_eqs", err)
+    eqs = scale.ScaleEqs(Hcc=Hcc, g_c=g_c, hpp6=hpp6, g_p=g_p, B_cm=None)
+    return eqs, b_rows
+
+
+def build_eqs(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust,
+              n_cameras, n_points):
+    """Fused normal-equation build (K_E; JAX ``build_eqs_grouped``):
+    residuals, Jacobians and IRLS weights at the parameters in ``ctab``
+    (``cm.cam_table``) and ``X3``, reduced to ``ScaleEqs(Hcc, g_c, hpp6,
+    g_p, B_cm=None)``, and the coupling rows ``b_rows [3*CP, M]`` in
+    ``ops.rows_dtype`` for the CG products."""
+    projection._check_model(model)
+    robust_mod._check(robust)
+    if not _route(X3):
+        return build_eqs_plain(ops, ctab, X3, robust_scale, cp=cp, model=model,
+                               robust=robust, n_cameras=n_cameras, n_points=n_points)
+    return _launch_build_eqs(ops, ctab, X3, robust_scale, cp, model, robust,
+                             n_cameras, n_points)
+
+
+# --------------------------------------------------------------------------
+# K_C: robust cost.
+# --------------------------------------------------------------------------
+
+
+def cost_plain(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
+    """Plain version of :func:`cost`."""
+    uh, vh = cm.project_cm(model, ctab[:, ops.obs_cam], X3[:, ops.obs_pt])
+    r0 = uh - ops.u
+    r1 = vh - ops.v
+    s = r0 * r0 + r1 * r1
+    return 0.5 * torch.sum(ops.w * robust_mod.rho(robust, s, robust_scale))
+
+
+def cost_blocks(M: int) -> int:
+    """Blocks of the cost kernel's first pass for M observations."""
+    return max(1, min(_COST_MAX_BLOCKS, -(-M // _BLOCK)))
+
+
+def cost(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
+    """Robust cost ``0.5 sum_m w_m rho(|r_m|^2)`` (K_C; JAX
+    ``cost_grouped``), an f32 scalar tensor on the kernel route."""
+    projection._check_model(model)
+    robust_mod._check(robust)
+    if not _route(X3):
+        return cost_plain(ops, ctab, X3, robust_scale, model=model, robust=robust)
+    from pysfm_tpu_torch.solver.kernels import _build
+
+    dev = X3.device
+    f32 = torch.float32
+    C, P, M = ctab.shape[1], X3.shape[1], ops.n_obs
+    _check_ops(ops, dev)
+    _check("ctab", ctab, f32, (13 + projection.INTR_DIM[model], C), dev)
+    _check("X3", X3, f32, (3, P), dev)
+    _check("robust_scale", robust_scale, f32, (), dev)
+    n_blocks = cost_blocks(M)
+    partial = torch.empty((n_blocks,), dtype=torch.float64, device=dev)
+    out = torch.empty((), dtype=f32, device=dev)
+    err = _build.library().pysfm_cost(
+        _MODEL_ID[model], _ROBUST_ID[robust], ctab.data_ptr(), C, X3.data_ptr(), P,
+        ops.obs_cam.data_ptr(), ops.obs_pt.data_ptr(), ops.u.data_ptr(),
+        ops.v.data_ptr(), ops.w.data_ptr(), robust_scale.data_ptr(), M,
+        partial.data_ptr(), n_blocks, out.data_ptr(), _stream(dev),
+    )
+    _launched("cost", err)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Hcp^T x, Hcp w, and the block-Jacobi diagonal (K_H).
+# --------------------------------------------------------------------------
+
+
+def _rows_f(ops: GroupedOps, dtype) -> torch.Tensor:
+    """The coupling rows in the arithmetic type (f32 at least)."""
+    return _rows(ops).to(torch.promote_types(dtype, torch.float32))
+
+
+def hcpT_x_plain(ops: GroupedOps, x, *, cp):
+    """Plain version of :func:`hcpT_x`."""
+    B4 = _rows_f(ops, x.dtype).reshape(3, cp, -1)
+    u_m = torch.einsum("sdm,dm->sm", B4, x.to(B4.dtype)[:, ops.obs_cam])
+    u = torch.zeros((3, ops.n_points), dtype=B4.dtype, device=B4.device)
+    return u.index_add_(1, ops.obs_pt, u_m)
+
+
+def hcp_w_plain(ops: GroupedOps, w3, n_cameras, *, cp):
+    """Plain version of :func:`hcp_w`."""
+    B4 = _rows_f(ops, w3.dtype).reshape(3, cp, -1)
+    z = torch.einsum("sdm,sm->dm", B4, w3.to(B4.dtype)[:, ops.obs_pt])
+    y = torch.zeros((cp, n_cameras), dtype=B4.dtype, device=B4.device)
+    return y.index_add_(1, ops.obs_cam, z)
+
+
+def precond_diag_plain(ops: GroupedOps, hinv6, n_cameras, *, cp):
+    """Plain version of :func:`precond_diag`."""
+    B0, B1, B2 = _rows_f(ops, hinv6.dtype).reshape(3, cp, -1)
+    a, b, c, d, e, f = hinv6.to(B0.dtype)[:, ops.obs_pt]
+    BH0 = a * B0 + b * B1 + d * B2
+    BH1 = b * B0 + c * B1 + e * B2
+    BH2 = d * B0 + e * B1 + f * B2
+    D_m = BH0[:, None] * B0[None] + BH1[:, None] * B1[None] + BH2[:, None] * B2[None]
+    D = torch.zeros((cp, cp, n_cameras), dtype=B0.dtype, device=B0.device)
+    return D.index_add_(2, ops.obs_cam, D_m).permute(2, 0, 1).contiguous()
+
+
+def _launch_spmv(name, ops, vec, vec_shape, out_shape, cp, C):
+    from pysfm_tpu_torch.solver.kernels import _build
+
+    dev = vec.device
+    P, M = ops.n_points, ops.n_obs
+    _check_ops(ops, dev)
+    b, bf16 = _check_rows(ops, cp, dev)
+    _check(name + " input", vec, torch.float32, vec_shape, dev)
+    if cp not in (6, 9, 10):
+        raise ValueError(f"cp={cp}: the kernels take 6, 9 or 10 camera dof")
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    if name == "hcpT_x":
+        idx, ptr = ops.obs_cam, ops.pt_ptr
+    else:
+        idx, ptr = ops.obs_pt, ops.cam_ptr
+    err = _build.library().pysfm_spmv(
+        _OP_ID[name], cp, bf16, b.data_ptr(), vec.data_ptr(), idx.data_ptr(),
+        ptr.data_ptr(), ops.cam_perm.data_ptr(), C, P, M, out.data_ptr(),
+        _stream(dev),
+    )
+    _launched(name, err)
+    return out
+
+
+def hcpT_x(ops: GroupedOps, x, *, cp):
+    """``u = Hcp^T x`` (JAX ``hcpT_x_grouped`` / ``hcpT_x_grouped2``):
+    ``x [CP, C]`` -> ``u [3, P]``,
+    ``u[s, p] = sum_{m of p} sum_d b_rows[s*CP+d, m] x[d, cam(m)]``."""
+    if not _route(x):
+        return hcpT_x_plain(ops, x, cp=cp)
+    C = ops.n_cameras
+    return _launch_spmv("hcpT_x", ops, x, (cp, C), (3, ops.n_points), cp, C)
+
+
+def hcp_w(ops: GroupedOps, w3, n_cameras, *, cp):
+    """``y = Hcp w`` (JAX ``hcp_w_grouped`` / ``hcp_w_grouped2``):
+    ``w3 [3, P]`` -> ``y [CP, C]``,
+    ``y[d, c] = sum_{m of c} sum_s b_rows[s*CP+d, m] w3[s, pt(m)]``."""
+    if not _route(w3):
+        return hcp_w_plain(ops, w3, n_cameras, cp=cp)
+    return _launch_spmv("hcp_w", ops, w3, (3, ops.n_points), (cp, n_cameras), cp,
+                        n_cameras)
+
+
+def precond_diag(ops: GroupedOps, hinv6, n_cameras, *, cp):
+    """Block-Jacobi correction (K_H; JAX ``precond_diag_grouped``):
+    ``D[c] = sum_{m of c} B_m Hinv[pt(m)] B_m^T`` with ``hinv6 [6, P]``;
+    returns ``D [C, CP, CP]``, symmetric."""
+    if not _route(hinv6):
+        return precond_diag_plain(ops, hinv6, n_cameras, cp=cp)
+    return _launch_spmv("precond_diag", ops, hinv6, (6, ops.n_points),
+                        (n_cameras, cp, cp), cp, n_cameras)

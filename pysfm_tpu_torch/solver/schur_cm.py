@@ -231,7 +231,8 @@ def back_substitute_cm(system: SchurSystemCM, dc: torch.Tensor) -> torch.Tensor:
 
 
 def _cholesky_nan(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, NaN where A is not positive definite.
+    """Lower Cholesky factor, NaN where A (or, for a batch, a block of A)
+    is not positive definite.
 
     ``jax.scipy.linalg.cho_factor`` returns NaN on a non-SPD matrix and the
     LM loop then rejects the step through ``isfinite(new_cost)``;
@@ -240,7 +241,7 @@ def _cholesky_nan(A: torch.Tensor) -> torch.Tensor:
     control flow of the reference.
     """
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def solve_step_cm(

@@ -24,12 +24,13 @@ class LMConfig:
     # fights f32 drift of the multiplicative updates.
     renormalize_every: int = 0
     # Reduced-camera-system solver: "dense" materializes the [C*CP, C*CP]
-    # Schur complement; "pcg" (matrix-free preconditioned CG) is not ported
-    # yet and raises.
+    # Schur complement; "pcg" solves it matrix-free with preconditioned CG
+    # on the component-major route (solver/pcg.py).
     solver: str = "dense"
     cg_iters: int = 100
     cg_tol: float = 1e-6
-    # Observation-chunked Jacobian build for the pcg path (0 = unchunked).
+    # Observation-chunked Jacobian build for the pcg route without kernel
+    # operands (0 = unchunked).
     obs_chunk: int = 0
     # Residual/Jacobian/robust-weight build: "torch" (plain PyTorch),
     # "cuda" (the hand-written kernel, CUDA f32 only — raises otherwise),
@@ -40,8 +41,12 @@ class LMConfig:
     # solver/schur_cm.py), "std" (not ported yet, raises) or "auto" (cm for
     # the dense solver).
     layout: str = "auto"
-    # The pcg-route settings below are carried so that a config means the
-    # same thing in both packages; the dense route does not read them.
+    # pcg route: warm-start CG with the previous camera step; the CG
+    # tolerance sequence ("fixed" cg_tol, or "ew": Eisenstat-Walker forcing
+    # between cg_tol and cg_tol_max); quadratic-model stagnation stop
+    # (0 = off); reuse the linearization after a rejected step; terms of
+    # the power-series preconditioner (1 = block-Jacobi).  The dense route
+    # does not read them.
     cg_warm_start: bool = True
     cg_forcing: str = "fixed"
     cg_tol_max: float = 0.3

@@ -29,7 +29,7 @@ NO_TOL = dict(max_iters=10, tol_grad=0.0, tol_cost_rel=0.0, tol_step=0.0)
 
 def to_port(p):
     arrays = {k: np.asarray(getattr(p, k)) for k in tprob.FIELDS}
-    return tprob.from_numpy(arrays, p.camera_model, p.robust)
+    return tprob.from_numpy(arrays, p.camera_model, p.robust, device="cpu")
 
 
 def _solve_both(p, **cfg):
@@ -78,7 +78,7 @@ def test_early_convergence_matches_jax():
 def test_make_scene_matches_jax():
     kw = dict(camera_model="bal", visibility=0.6, dtype=np.float64, **SCENE)
     a = jsyn.make_scene(5, 80, **kw)
-    b = tsyn.make_scene(5, 80, **kw)
+    b = tsyn.make_scene(5, 80, device="cpu", **kw)
     for pj, pt in ((a.truth, b.truth), (a.problem, b.problem)):
         for k in tprob.FIELDS:
             x, y = np.asarray(getattr(pj, k)), getattr(pt, k).numpy()
@@ -89,7 +89,7 @@ def test_make_scene_matches_jax():
 def test_segmented_solve_continues_exactly():
     """lam_next / nu_next carry the damping state: 4 + 6 iterations are the
     same solve as 10."""
-    p = tsyn.make_scene(6, 300, dtype=np.float64, **SCENE).problem
+    p = tsyn.make_scene(6, 300, dtype=np.float64, device="cpu", **SCENE).problem
     cfg = LMConfig(**NO_TOL)
     _, full = solve(p, cfg)
     p4, s4 = solve(p, dataclasses.replace(cfg, max_iters=4))
@@ -102,30 +102,33 @@ def test_segmented_solve_continues_exactly():
 def test_kernel_route_on_cpu_is_the_plain_route():
     """jac_backend="cuda" goes through the kernel's wrapper, which runs the
     plain version for CPU tensors: same result as "torch"."""
-    p = tsyn.make_scene(4, 60, dtype=np.float32, **SCENE).problem
+    p = tsyn.make_scene(4, 60, dtype=np.float32, device="cpu", **SCENE).problem
     _, a = solve(p, LMConfig(jac_backend="cuda", **NO_TOL))
     _, b = solve(p, LMConfig(jac_backend="torch", **NO_TOL))
     np.testing.assert_allclose(a.costs.numpy(), b.costs.numpy(), rtol=1e-6)
 
 
 def test_unported_routes_raise():
-    p = tsyn.make_scene(3, 20, seed=1).problem
+    """The std layout is still to port and raises naming its ROADMAP item;
+    wrong inputs raise.  (The pcg route and CMProblem are ported:
+    ``tests/test_torch_pcg_lm.py``.)"""
+    p = tsyn.make_scene(3, 20, seed=1, device="cpu").problem
     with pytest.raises(TypeError):
         solve(p, LMConfig(jac_backend="cuda"))  # the kernel is f32 only
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(p, LMConfig(solver="pcg"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(p, LMConfig(layout="std"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="BundleProblem or a CMProblem"):
         solve(object(), LMConfig())
     with pytest.raises(ValueError):
         solve(p, LMConfig(jac_backend="pallas"))
+    with pytest.raises(ValueError):
+        solve(p, LMConfig(solver="cholmod"))
 
 
 def test_timeit_runs_on_cpu():
     from pysfm_tpu_torch.utils import timing
 
-    p = tsyn.make_scene(3, 20, seed=1).problem
+    p = tsyn.make_scene(3, 20, seed=1, device="cpu").problem
     secs = timing.timeit(solve, p, LMConfig(max_iters=2), n=2)
     timing.sync()
     assert secs > 0.0

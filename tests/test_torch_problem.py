@@ -61,14 +61,14 @@ def test_make_problem_matches_jax(rng):
     w = (rng.random(M) > 0.1).astype(float)
     kw = dict(robust="cauchy", robust_scale=3.0, obs_w=w)
     a = jprob.make_problem(R, t, intr, X, cam, pt, uv, **kw)
-    b = tprob.make_problem(R, t, intr, X, cam, pt, uv, **kw)
+    b = tprob.make_problem(R, t, intr, X, cam, pt, uv, device="cpu", **kw)
     for k in tprob.FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(a, k)),
                                       getattr(b, k).numpy(), err_msg=k)
     with pytest.raises(ValueError):
-        tprob.make_problem(R, t, intr[:, :3], X, cam, pt, uv)
+        tprob.make_problem(R, t, intr[:, :3], X, cam, pt, uv, device="cpu")
     with pytest.raises(ValueError):
-        tprob.make_problem(R, t, intr, X, cam, pt, uv, max_track=1)
+        tprob.make_problem(R, t, intr, X, cam, pt, uv, max_track=1, device="cpu")
 
 
 @pytest.mark.parametrize("model", ["pose", "pose_k", "bal"])

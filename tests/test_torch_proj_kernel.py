@@ -26,7 +26,7 @@ TOL = dict(rtol=1e-12, atol=1e-12)
 
 def to_port(p):
     arrays = {k: np.asarray(getattr(p, k)) for k in tprob.FIELDS}
-    return tprob.from_numpy(arrays, p.camera_model, p.robust)
+    return tprob.from_numpy(arrays, p.camera_model, p.robust, device="cpu")
 
 
 def _scene(model, robust, n_cams=5, n_pts=101, dtype=np.float64, seed=3):
@@ -100,6 +100,6 @@ def test_f32_close_to_pallas():
 
 def test_dispatch_is_by_device():
     """Neither CPU nor CUDA: the wrapper refuses rather than guessing."""
-    tp = tsyn.make_scene(3, 20, seed=1).problem.to("meta")
+    tp = tsyn.make_scene(3, 20, seed=1, device="cpu").problem.to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         proj.residuals_and_jacobians_cm(tp)
