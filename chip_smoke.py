@@ -16,22 +16,36 @@ Phases (any failure raises and the script exits non-zero):
    (dense component-major Schur LM) for 30 iterations on the 50-camera /
    10k-point Huber scene, checked against the plain route on the card and,
    on a small scene, against the f64 route on the host; then [speed];
-5. [spmv kernels] the five kernels of the pcg route (K_E ``build_eqs``,
-   K_C ``cost``, ``hcpT_x``, ``hcp_w``, K_H ``precond_diag``) against their
-   plain versions on small ragged scenes (also one with C > 128): 3 camera
-   models x 3 robust kernels, f32 and bf16 coupling rows; two launches must
-   agree bit for bit, and f64 tensors must be refused;
-6. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
+5. [std] the standard-layout dense path: ``solve()`` with
+   ``LMConfig(layout="std")`` (the std wrapper of the projection kernel,
+   ``solver/schur.py``) on the same scene, checked against the cm route on
+   the card and, on a small scene, against the f64 std route on the host;
+   the two-view scene of ``examples/two_view_ba.py`` to its noise floor;
+6. [spmv kernels] the six kernels of the pcg route (K_E ``build_eqs``,
+   K_D ``payload_b``, K_C ``cost``, ``hcpT_x``, ``hcp_w``, K_H
+   ``precond_diag``) against their plain versions on small ragged scenes
+   (also one with C > 128): 3 camera models x 3 robust kernels, f32 and bf16
+   coupling rows; K_D against K_E's rows too; two launches must agree bit
+   for bit, and f64 tensors must be refused;
+7. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
    "pcg", cg_forcing="ew", ...), gops=make_grouped_ops(...))`` on the
    bench.py headline scene (the same 50 / 10k scene), 30 iterations, with
    the exact launch count of every kernel checked against the LM and CG
    logs, the final cost against the plain route on the card and, on a small
    scene, against the f64 host route; then a torch.profiler trace of one
    solve (device idle share) and each kernel's time at that shape;
-7. [pcg venice] the same route on the Venice-scale synthetic BAL scene
+8. [pcg venice] the same route on the Venice-scale synthetic BAL scene
    (1712 cameras, 1M points, ~5M observations): kernels against plain at
    that shape, their times, 18 LM iterations with bench/venice.py's
-   settings, and a torch.profiler trace of them.
+   settings, and a torch.profiler trace of them;
+9. [bal io] the BAL-file path of ``bench/io_scale.py`` (428 cameras, 125k
+   points, camera model "bal"): ``save_bal``, ``load_bal`` onto the card
+   through the native tokenizer, a segmented pcg solve with the kernels,
+   and a checkpoint at the half whose resumed cost log must equal the tail
+   of the straight solve to 1e-5.
+
+No solve path runs K_D (as in the JAX package): every solve checks that it
+launched 0 times.
 
 The second-to-last lines are the card's ``nvidia-smi`` name and power
 limit and one JSON object describing each kernel (times at the dense and
@@ -86,6 +100,13 @@ VENICE_SCENE = dict(
     with_truth=False, layout="cm",
 )
 VENICE_ITERS = 18  # bench/venice.py's default
+# bench/io_scale.py's scene and solve.
+IO_SCENE = dict(
+    n_cameras=428, n_points=125_000, mean_track=5.0, max_track=12, noise_px=0.5,
+    camera_model="bal", seed=4, dtype=np.float32, with_truth=False, layout="std",
+)
+IO_ITERS = 12
+RESUME_RTOL = 1e-5
 # Roofline of the H100 SXM (data sheet): device memory and non-tensor f32.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -93,9 +114,10 @@ F32_FLOPS_PER_S = 67e12
 # the 3x3 transform, the division, the 2x3 derivative, the 2x(6+intr) camera
 # and 2x3 point Jacobian rows), counted from the source.
 LINEARIZE_OPS = 110
-SPMV_KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag")
+SPMV_KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag", "payload_b")
 SPMV_SOURCE = {
     "build_eqs": ("pysfm_tpu_torch/csrc/eqs.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:929"),
+    "payload_b": ("pysfm_tpu_torch/csrc/eqs.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:762"),
     "cost": ("pysfm_tpu_torch/csrc/eqs.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:1149"),
     "hcpT_x": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:569"),
     "hcp_w": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:654"),
@@ -276,14 +298,20 @@ def phase_kernel_main(p, smi: str) -> dict:
                 bound_by=bound_by, library_ms=None)
 
 
+def _timed(fn):
+    """(fn(), seconds), host clock between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def _solve_timed(p, cfg, gops=None):
     from pysfm_tpu_torch.solver import solve
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, stats = solve(p, cfg, gops=gops)
-    torch.cuda.synchronize()
-    return out, stats, time.perf_counter() - t0
+    (out, stats), secs = _timed(lambda: solve(p, cfg, gops=gops))
+    return out, stats, secs
 
 
 def _reset_counts():
@@ -364,8 +392,86 @@ def phase_speed(p, smi: str) -> dict:
     return rates
 
 
+def phase_std(p, smi: str) -> dict:
+    """The standard-layout dense path on the main scene, the small scene and
+    the two-view scene; returns the std wrapper's timing stats and its
+    launches."""
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.problem import problem as problem_mod
+    from pysfm_tpu_torch.solver import LMConfig, solve
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
+    from pysfm_tpu_torch.utils import metrics
+
+    cfg = LMConfig(layout="std", max_iters=N_ITERS, **NO_TOL)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, stats, secs = _solve_timed(p, cfg)
+    launches = proj.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches != N_ITERS or any(spmv.LAUNCHES.values()):
+        raise AssertionError(f"std path launched the projection kernel {launches} times, "
+                             f"expected {N_ITERS}, and the pcg kernels {spmv.LAUNCHES}")
+    costs = stats.costs.cpu().numpy()
+    if not (np.all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        raise AssertionError(f"std path: bad cost log {costs}")
+    _, st_cm, _ = _solve_timed(p, dataclasses.replace(cfg, layout="cm"))
+    c_cm = float(st_cm.costs[-1])
+    rel = abs(costs[-1] - c_cm) / abs(c_cm)
+    if not rel <= COST_RTOL:
+        raise AssertionError(f"std route final cost {costs[-1]} vs cm route {c_cm}")
+    best = secs
+    for _ in range(2):
+        best = min(best, _solve_timed(p, cfg)[2])
+
+    small = dict(n_cameras=6, n_points=300, noise_px=0.5, outlier_frac=0.05,
+                 outlier_px=40.0, robust="huber", robust_scale=2.0, seed=11)
+    small_cfg = dataclasses.replace(cfg, max_iters=10)
+    ps = synthetic.make_scene(**small, dtype=np.float32, device="cuda").problem
+    ph = synthetic.make_scene(**small, dtype=np.float64, device="cpu").problem
+    c_card = float(solve(ps, small_cfg)[1].costs[-1])
+    c_host = float(solve(ph, small_cfg)[1].costs[-1])
+    rel_small = abs(c_card - c_host) / abs(c_host)
+    if not rel_small <= COST_RTOL:
+        raise AssertionError(f"std small scene: card f32 {c_card} vs host f64 {c_host}")
+
+    # examples/two_view_ba.py's scene and success test (RMSE < 2 x noise).
+    noise = 0.5
+    tv = synthetic.make_scene(2, 100, noise_px=noise, perturb_rot=0.05, perturb_trans=0.1,
+                              perturb_point=0.1, seed=0, dtype=np.float32,
+                              device="cuda").problem
+    tv_out, tv_st = solve(tv, LMConfig(layout="std", max_iters=30))
+    rmse = metrics.reprojection_rmse(tv_out)
+    if not rmse < 2.0 * noise:
+        raise AssertionError(f"two-view std solve: RMSE {rmse} px, noise {noise} px")
+
+    C, P, cp = p.n_cameras, p.n_points, p.cam_dof
+    print(f"[std] solve(layout='std') {N_ITERS} iters, M={p.n_obs}: cost {costs[0]:.6e} -> "
+          f"{costs[-1]:.6e}, {launches} projection-kernel launches (std wrapper), accepted "
+          f"{int(stats.accepted.sum())}/{N_ITERS}; cm route {c_cm:.6e} (rel {rel:.2e}); small "
+          f"scene card f32 vs host f64 rel {rel_small:.2e}; two-view RMSE {rmse:.4f} px "
+          f"(< {2 * noise}) in {int(tv_st.n_iters)} iters")
+    print(f"[std] ms per LM iteration (best of 3 x {N_ITERS} iters, host clock, synchronized): "
+          f"{1e3 * best / N_ITERS:.3f}; dense W operand [P, C*CP, 3] f32 = "
+          f"{P * C * cp * 3 * 4 / 1e6:.1f} MB; peak memory allocated {peak / 2**20:.1f} MiB "
+          f"| {smi}")
+
+    def kernel():
+        return proj.residuals_and_jacobians(p)
+
+    def plain():
+        return problem_mod.residuals_and_jacobians(p)
+
+    ms, plain_ms = _device_ms(kernel), _device_ms(plain)
+    err, ok = _max_err(kernel(), plain())
+    if not ok:
+        raise AssertionError(f"std wrapper disagrees with the plain route, max err {err}")
+    print(f"[std] projection kernel, std wrapper (kernel + transposes) at M={p.n_obs}: max abs "
+          f"err {err:.3e}; device time {ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}")
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms)
+
+
 # --------------------------------------------------------------------------
-# The pcg route: five kernels (solver/kernels/spmv.py, csrc/eqs.cu, spmv.cu).
+# The pcg route: six kernels (solver/kernels/spmv.py, csrc/eqs.cu, spmv.cu).
 # --------------------------------------------------------------------------
 
 
@@ -402,16 +508,19 @@ def _spmv_inputs(p, ops, eqs, seed=0):
 
 
 def _spmv_pairs(p, ops, eqs, b_rows):
-    """{name: (kernel call, plain call)} for the five kernels on p."""
+    """{name: (kernel call, plain call)} for the six kernels on p."""
     from pysfm_tpu_torch.solver.kernels import spmv
 
     args, kw = _eqs_args(p, ops)
     ckw = dict(model=p.camera_model, robust=p.robust)
+    dkw = dict(cp=p.cam_dof, **ckw)
     ops_it = ops.replace(b_rows=b_rows)
     vec = _spmv_inputs(p, ops, eqs)
     pairs = {
         "build_eqs": (lambda: spmv.build_eqs(*args, **kw),
                       lambda: spmv.build_eqs_plain(*args, **kw)),
+        "payload_b": (lambda: spmv.payload_b(*args, **dkw),
+                      lambda: spmv.payload_b_plain(*args, **dkw)),
         "cost": (lambda: spmv.cost(*args, **ckw), lambda: spmv.cost_plain(*args, **ckw)),
     }
     for name in ("hcpT_x", "hcp_w", "precond_diag"):
@@ -456,16 +565,34 @@ def _check_pair(name, kernel, plain, bf16_rows):
     return worst
 
 
+def _kd_vs_ke(p, ops, b_rows) -> bool:
+    """K_D's rows against K_E's ``b_rows`` at the same parameters (within
+    KERNEL_TOL, bf16 within one ulp); returns whether they are bitwise
+    equal."""
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    args, _ = _eqs_args(p, ops)
+    b = spmv.payload_b(*args, cp=p.cam_dof, model=p.camera_model, robust=p.robust)
+    if b.dtype == torch.bfloat16:
+        ok = _bf16_ulp_ok(b, b_rows)
+    else:
+        ok = _max_err([b], [b_rows])[1]
+    if not ok:
+        raise AssertionError("payload_b (K_D) disagrees with build_eqs (K_E) rows")
+    return torch.equal(b, b_rows)
+
+
 def _kernels_vs_plain(p, ops):
-    """All five kernels against their plain versions on problem p; returns
-    {name: worst abs error}."""
+    """All six kernels against their plain versions on problem p, and K_D
+    against K_E; returns ({name: worst abs error}, K_D == K_E bitwise)."""
     from pysfm_tpu_torch.solver.kernels import spmv
 
     bf16 = ops.rows_dtype == torch.bfloat16
     args, kw = _eqs_args(p, ops)
     eqs, b_rows = spmv.build_eqs(*args, **kw)
-    return {name: _check_pair(name, kernel, plain, bf16)
+    errs = {name: _check_pair(name, kernel, plain, bf16)
             for name, (kernel, plain) in _spmv_pairs(p, ops, eqs, b_rows).items()}
+    return errs, _kd_vs_ke(p, ops, b_rows)
 
 
 def phase_spmv_small() -> None:
@@ -475,6 +602,7 @@ def phase_spmv_small() -> None:
 
     worst = dict.fromkeys(SPMV_KERNELS, 0.0)
     shapes = set()
+    kd_bitwise = []
     for model in ("pose", "pose_k", "bal"):
         for robust in ("gaussian", "huber", "cauchy"):
             scenes = [(5, 101)] + ([(160, 700)] if robust == "huber" else [])
@@ -486,14 +614,17 @@ def phase_spmv_small() -> None:
                 ).problem
                 shapes.add((C, P, p.n_obs))
                 for rows in (torch.float32, torch.bfloat16):
-                    errs = _kernels_vs_plain(p, make_grouped_ops(p, rows_dtype=rows))
+                    errs, same = _kernels_vs_plain(p, make_grouped_ops(p, rows_dtype=rows))
                     worst = {k: max(worst[k], errs[k]) for k in worst}
+                    kd_bitwise.append(same)
     p64 = synthetic.make_bal_scene(5, 101, seed=3, dtype=np.float64, with_truth=False,
                                    layout="cm").problem
     ops64 = make_grouped_ops(p64)
     args, kw = _eqs_args(p64, ops64)
     refused = 0
     for call in (lambda: spmv.build_eqs(*args, **kw),
+                 lambda: spmv.payload_b(*args, cp=p64.cam_dof, model=p64.camera_model,
+                                        robust=p64.robust),
                  lambda: spmv.cost(*args, model=p64.camera_model, robust=p64.robust),
                  lambda: spmv.hcpT_x(ops64.replace(b_rows=torch.zeros(
                      (3 * p64.cam_dof, p64.n_obs), dtype=torch.float64, device="cuda")),
@@ -503,13 +634,14 @@ def phase_spmv_small() -> None:
             call()
         except TypeError:
             refused += 1
-    if refused != 3:
+    if refused != 4:
         raise AssertionError("a pcg kernel wrapper accepted f64 CUDA tensors")
     print(f"[spmv kernels] 3 models x 3 robust kernels, f32 and bf16 rows, scenes (C, P, M) "
           f"{sorted(shapes)}: kernel == plain, max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (bound {KERNEL_TOL} x (max|ref|+1); bf16 rows within one ulp); two launches "
-          "bitwise equal; f64 refused")
+          f"bitwise equal; f64 refused; payload_b (K_D) == build_eqs (K_E) rows within bound, "
+          f"bitwise equal in {sum(kd_bitwise)} of {len(kd_bitwise)} cases")
 
 
 def _spmv_cost(name, p, ops, b_rows):
@@ -522,6 +654,10 @@ def _spmv_cost(name, p, ops, b_rows):
         nbytes = (4 * ((13 + p.intr.shape[1]) * C + 3 * P + 6 * M + P + C + 3)
                   + rb + 4 * (C * cp * cp + C * cp + 9 * P))
         ops = M * (LINEARIZE_OPS + 4 * 3 * cp + 5 * (ntri + cp) + 5 * 9)
+    elif name == "payload_b":
+        # Tables, 20 B an observation (two ids, u, v, w), the rows.
+        nbytes = 4 * ((13 + p.intr.shape[1]) * C + 3 * P + 5 * M + 1) + rb
+        ops = M * (LINEARIZE_OPS + 4 * 3 * cp)
     elif name == "cost":
         nbytes = 4 * ((13 + p.intr.shape[1]) * C + 3 * P + 5 * M + 2)
         ops = M * 40
@@ -563,6 +699,9 @@ def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
     args, kw = _eqs_args(p, ops)
     eqs, b_rows = spmv.build_eqs(*args, **kw)
     pairs = _spmv_pairs(p, ops, eqs, b_rows)
+    kd_same = _kd_vs_ke(p, ops, b_rows)
+    print(f"[{label}] payload_b (K_D) == build_eqs (K_E) rows at M={p.n_obs}: within bound, "
+          f"bitwise equal {kd_same}")
     hcp, hcpT = _sparse_hcp(p, ops, b_rows)
     vec = _spmv_inputs(p, ops, eqs)
     x_flat = vec["hcpT_x"][0].T.reshape(-1, 1).contiguous()       # (c*CP + d)
@@ -591,17 +730,21 @@ def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
     return out
 
 
-def _expected_launches(st, cfg) -> dict:
+def _expected_launches(st, cfg, seg=None) -> dict:
     """Each kernel's launches implied by the LM and CG logs of one pcg solve
-    (block-Jacobi preconditioner, CG warm start, linearization reuse)."""
+    (block-Jacobi preconditioner, CG warm start, linearization reuse), or of
+    a ``solve_segmented`` run of ``seg`` iterations a segment."""
     n = int(st.n_iters)
     acc = st.accepted[:n].cpu().numpy()
     cg = st.cg_iters[:n].cpu().numpy().astype(int)
     if cfg.cg_precond_terms != 1 or not cfg.cg_warm_start or not cfg.reuse_linearization:
         raise ValueError("the launch formula below assumes the default pcg options")
+    segs = [acc[i:i + (seg or n)] for i in range(0, n, seg or n)]
     return {
-        "build_eqs": 1 + int(acc[:-1].sum()),   # first build + one after each accept
-        "cost": 1 + n,                          # initial cost + each candidate
+        # Each solve: first build + one after each accept but its last.
+        "build_eqs": sum(1 + int(a[:-1].sum()) for a in segs),
+        "payload_b": 0,                         # on no solve path
+        "cost": sum(1 + len(a) for a in segs),  # initial cost + each candidate
         "precond_diag": n,                      # one system build per iteration
         # rhs, warm-start residual, one per CG iteration:
         "hcp_w": int((2 + cg).sum()),
@@ -610,18 +753,24 @@ def _expected_launches(st, cfg) -> dict:
     }
 
 
-def _pcg_solve_counted(p, cfg, gops, label):
-    """Drive the pcg path with the counts set to 0 just before and read just
-    after; check them against the logs.  Returns (stats, seconds, counts)."""
+def _check_counts(label, cfg, st, seg=None) -> dict:
+    """The spmv counts since the last reset against the LM/CG logs."""
     from pysfm_tpu_torch.solver.kernels import proj, spmv
 
-    _reset_counts()
-    _, st, secs = _solve_timed(p, cfg, gops)
     counts = dict(spmv.LAUNCHES)
-    expected = _expected_launches(st, cfg)
+    expected = _expected_launches(st, cfg, seg)
     if counts != expected or proj.LAUNCHES:
         raise AssertionError(f"{label}: launches {counts} (proj {proj.LAUNCHES}), "
                              f"expected {expected} from the LM/CG logs")
+    return counts
+
+
+def _pcg_solve_counted(p, cfg, gops, label):
+    """Drive the pcg path with the counts set to 0 just before and read just
+    after; check them against the logs.  Returns (stats, seconds, counts)."""
+    _reset_counts()
+    _, st, secs = _solve_timed(p, cfg, gops)
+    counts = _check_counts(label, cfg, st)
     costs = st.costs.cpu().numpy()
     if not np.all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"{label}: bad cost log {costs}")
@@ -702,12 +851,11 @@ def phase_pcg_main(smi) -> dict:
     phase_profile(p, cfg, gops, "pcg main", smi)
     stats = phase_spmv_timing(p, gops, "pcg main", smi)
     for name in SPMV_KERNELS:
-        stats[name]["launches"] = counts[name]
         print(f"[pcg main] {name}: {counts[name] / n:.2f} launches per LM iteration")
-    return stats
+    return stats, counts
 
 
-def phase_pcg_venice(smi) -> None:
+def phase_pcg_venice(smi) -> dict:
     from pysfm_tpu_torch.pipeline import synthetic
     from pysfm_tpu_torch.solver import LMConfig
     from pysfm_tpu_torch.solver.lm import make_grouped_ops
@@ -736,6 +884,79 @@ def phase_pcg_venice(smi) -> None:
     for name in SPMV_KERNELS:
         print(f"[pcg venice] {name}: {counts[name] / n:.2f} launches per LM iteration")
     phase_profile(p, cfg, gops, "pcg venice", smi)
+    return counts
+
+
+def phase_bal_io(smi) -> dict:
+    """bench/io_scale.py on the port: BAL text file -> native tokenizer ->
+    CMProblem on the card -> segmented pcg solve with the kernels -> CM
+    checkpoint at the half -> resume; returns the straight solve's counts."""
+    import shutil
+    import tempfile
+
+    from pysfm_tpu_torch.io import load_bal, load_checkpoint_cm, native, save_bal
+    from pysfm_tpu_torch.io import save_checkpoint_cm
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver import LMConfig, solve
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops, solve_segmented
+
+    sp = synthetic.make_bal_scene(**IO_SCENE, device="cuda").problem
+    tmp = tempfile.mkdtemp(prefix="pysfm_io_")
+    try:
+        path = os.path.join(tmp, "scene.bal")
+        _, t_save = _timed(lambda: save_bal(path, sp))
+        mb = os.path.getsize(path) / 1e6
+        cmp, t_load = _timed(lambda: load_bal(path, layout="cm", dtype=np.float32,
+                                              robust="huber", robust_scale=2.0))
+        if not native.have_native():
+            raise AssertionError("bal io: the native tokenizer did not load")
+        if not (torch.equal(cmp.obs_cam, sp.obs_cam) and torch.equal(cmp.obs_pt, sp.obs_pt)):
+            raise AssertionError("bal io: loaded observation ids differ from the saved ones")
+        if not torch.allclose(cmp.X3, sp.X.T, rtol=1e-6, atol=1e-7):
+            raise AssertionError("bal io: loaded points differ from the saved ones")
+        gops, t_gops = _timed(lambda: make_grouped_ops(cmp))
+        cfg = LMConfig(max_iters=IO_ITERS, solver="pcg", cg_iters=25, cg_tol=1e-2, **NO_TOL)
+        _reset_counts()
+        (_, st_full), t_solve = _timed(
+            lambda: solve_segmented(cmp, cfg, iters_per_dispatch=6, gops=gops))
+        counts = _check_counts("bal io", cfg, st_full, seg=6)
+
+        half = IO_ITERS // 2
+        cfg_half = dataclasses.replace(cfg, max_iters=half)
+        p_half, st_half = solve_segmented(cmp, cfg_half, iters_per_dispatch=6, gops=gops)
+        ck = os.path.join(tmp, "ckpt.npz")
+        _, t_ck = _timed(lambda: save_checkpoint_cm(
+            ck, p_half, lam=float(st_half.lam_next), nu=float(st_half.nu_next),
+            iteration=half))
+        (cmp_r, lam_r, nu_r, it_r), t_restore = _timed(lambda: load_checkpoint_cm(ck))
+        if it_r != half or not torch.equal(cmp_r.X3, p_half.X3):
+            raise AssertionError("bal io: the checkpoint did not restore the saved state")
+        gops_r = make_grouped_ops(cmp_r)
+        _reset_counts()
+        _, st_res = solve(cmp_r, cfg_half, lam_init=lam_r, nu_init=nu_r, gops=gops_r)
+        _check_counts("bal io resume", cfg_half, st_res)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c_full = st_full.costs.cpu().numpy().astype(np.float64)
+    c_res = st_res.costs.cpu().numpy().astype(np.float64)
+    tail = c_full[half + 1:]
+    rel = float(np.max(np.abs(c_res[1:1 + len(tail)] - tail) / tail))
+    if not (np.all(np.isfinite(c_full)) and c_full[-1] < c_full[0]):
+        raise AssertionError(f"bal io: bad cost log {c_full}")
+    if not rel < RESUME_RTOL:
+        raise AssertionError(f"bal io: resumed tail differs by {rel} (gate {RESUME_RTOL})")
+    n = int(st_full.n_iters)
+    print(f"[bal io] C={cmp.n_cameras} P={cmp.n_points} M={cmp.n_obs} (camera model "
+          f"{cmp.camera_model}), BAL file {mb:.1f} MB, native tokenizer loaded: "
+          f"{native.have_native()}; ids exact, X3 within 1e-6; cost {c_full[0]:.6e} -> "
+          f"{c_full[-1]:.6e} in {n} iters ({int(st_full.accepted.sum())} accepted, CG "
+          f"{st_full.cg_iters.cpu().numpy().tolist()}); resumed tail rel {rel:.3e} "
+          f"(gate {RESUME_RTOL}); launches {counts} == LM/CG logs")
+    print(f"[bal io] seconds: save_bal {t_save:.3f}, load_bal (cm, onto the card) "
+          f"{t_load:.3f}, make_grouped_ops {t_gops:.3f}, solve_segmented ({n} iters) "
+          f"{t_solve:.3f}, save_checkpoint_cm {t_ck:.3f}, load_checkpoint_cm "
+          f"{t_restore:.3f} | {smi}")
+    return counts
 
 
 def main() -> int:
@@ -756,23 +977,32 @@ def main() -> int:
     kstats = phase_kernel_main(p, smi)
     launches = phase_main(p)
     phase_speed(p, smi)
+    std = phase_std(p, smi)
     phase_spmv_small()
-    pcg_stats = phase_pcg_main(smi)
-    phase_pcg_venice(smi)
+    pcg_stats, pcg_counts = phase_pcg_main(smi)
+    venice_counts = phase_pcg_venice(smi)
+    io_counts = phase_bal_io(smi)
 
+    # Launches on each main path, each read just after the path ran with
+    # the counts set to 0 just before it.
+    proj_paths = {"main": launches, "std": std["launches"]}
     kernels = [{
         "name": "proj_cm",
         "route": "cuda",
         "source": "pysfm_tpu_torch/csrc/proj.cu",
-        "replaces": "pysfm_tpu/solver/kernels/pallas_proj.py:214",
-        "launches": launches,
+        "replaces": "pysfm_tpu/solver/kernels/pallas_proj.py:214 (std route: :285)",
+        "launches": sum(proj_paths.values()),
+        "launches_by_path": proj_paths,
         **kstats,
     }]
     for name in SPMV_KERNELS:
         source, replaces = SPMV_SOURCE[name]
         st = pcg_stats[name]
+        paths = {"pcg main": pcg_counts[name], "pcg venice": venice_counts[name],
+                 "bal io": io_counts[name]}
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": st["launches"],
+                        "replaces": replaces, "launches": sum(paths.values()),
+                        "launches_by_path": paths,
                         **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}})
     print(smi)

@@ -6,21 +6,24 @@ wherever a tensor is made, and numpy ``Generator``s for scene randomness.
 The JAX package stays the reference; ``tests/test_torch_*.py`` hold every
 ported module to it on the same inputs.
 
-Ported so far (the dense component-major route and the pcg route):
+Ported so far (the dense routes, the pcg route and the BAL-file path):
 
-- ``geometry``  — SO(3), projection models with analytic Jacobians
+- ``geometry``  — SO(3), SE(3), projection models with analytic Jacobians
 - ``problem``   — ``BundleProblem``, the component-major ``CMProblem``,
   robust costs, ``from_numpy``
-- ``solver``    — dense-cm Schur LM and the matrix-free pcg LM;
+- ``solver``    — dense Schur LM (component-major ``schur_cm`` and the
+  standard layout ``schur``) and the matrix-free pcg LM;
   ``solver.kernels`` holds the hand-written CUDA kernels (``csrc/``):
-  ``proj`` (projection/Jacobian) and ``spmv`` (normal equations, cost,
-  the products with Hcp, the block-Jacobi diagonal)
+  ``proj`` (projection/Jacobian) and ``spmv`` (normal equations, coupling
+  rows, cost, the products with Hcp, the block-Jacobi diagonal)
+- ``io``        — BAL and Bundler files, checkpoints (the JAX package's
+  file format), the C++ tokenizer
 - ``pipeline``  — synthetic scenes, up to the Venice-scale BAL scene
-- ``utils``     — precision policy, config, timing fences
+- ``utils``     — precision policy, config, timing fences, metrics
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.
 """
 
 __version__ = "0.1.0"
 
-from pysfm_tpu_torch import geometry, problem, solver  # noqa: F401
+from pysfm_tpu_torch import geometry, io, problem, solver  # noqa: F401

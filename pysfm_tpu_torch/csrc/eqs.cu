@@ -1,7 +1,9 @@
-// Normal-equation build (K_E) and robust cost (K_C) of the pcg route.
+// Normal-equation build (K_E), coupling rows alone (K_D) and robust cost
+// (K_C) of the pcg route.
 //
 // Replaces the Pallas TPU kernels pysfm_tpu/solver/kernels/pallas_spmv.py
-// build_eqs_grouped (_ke_kernel) and cost_grouped (_kc_kernel).  Inputs are
+// build_eqs_grouped (_ke_kernel), payload_b_grouped (_kd_kernel) and
+// cost_grouped (_kc_kernel).  Inputs are
 // the CMProblem's own arrays, observations sorted by point:
 //   ctab [Dc, C]  packed camera table (problem/cm.py: cam_table)
 //   X3 [3, P]     points, component-major
@@ -20,6 +22,10 @@
 // - camera pass: one block per camera walks cam_perm, recomputes the
 //   projection (cheap next to storing [tri(CP) + CP, M] rows) and reduces
 //   the tri(CP) + CP camera sums with block_sum (common.cuh).
+// K_D writes b_rows alone: one thread per observation (grid-stride), the
+// same linearize call and row expression as K_E's point pass, so neighbouring
+// threads store neighbouring columns of every row (coalesced, unlike K_E's
+// point pass).  No solve path calls it, as in the JAX package.
 // K_C: one thread per observation (grid-stride), per-block partial sums in
 // double, then one block adds the partials in a fixed order.
 // No atomics anywhere: every output is the same bit for bit on every run.
@@ -28,7 +34,8 @@
 // u, v, w, the cam_perm entry) and writes 3*CP*4 B of b_rows (72 B for the
 // pose model in f32), so it is bound by the b_rows store; the tables ctab
 // and X3 are L2-resident or read once.  At the Venice scale (M ~ 5M) that
-// is ~0.5 GB, ~0.14 ms.  K_C reads ~24 B an observation, ~0.04 ms there.
+// is ~0.5 GB, ~0.14 ms.  K_D reads 20 B an observation and writes the same
+// rows: ~0.46 GB, ~0.14 ms.  K_C reads ~24 B an observation, ~0.04 ms there.
 // The point pass writes b_rows strided by the track length within a warp
 // (threads own neighbouring points), so its stores coalesce only partly;
 // the camera pass reads u, v, w, obs_pt through cam_perm, scattered.  Both
@@ -145,6 +152,37 @@ eqs_camera_kernel(const float* __restrict__ ctab, int C,
   }
 }
 
+template <int MODEL, int ROBUST, typename TR>
+__global__ void __launch_bounds__(kBlock)
+payload_b_kernel(const float* __restrict__ ctab, int C,
+                 const float* __restrict__ X3, int P,
+                 const int32_t* __restrict__ obs_cam,
+                 const int32_t* __restrict__ obs_pt,
+                 const float* __restrict__ u, const float* __restrict__ v,
+                 const float* __restrict__ w,
+                 const float* __restrict__ scale, int M,
+                 TR* __restrict__ b_rows) {        // [3*CP, M]
+  constexpr int CP = ModelTraits<MODEL>::CP;
+  const size_t Ms = static_cast<size_t>(M);
+  const float sc = __ldg(scale);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlock;
+  for (int64_t m = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x; m < M;
+       m += stride) {
+    ProjJac<MODEL> o;
+    const float wq = linearize<MODEL, ROBUST>(
+        ctab, C, X3, P, __ldg(obs_cam + m), __ldg(obs_pt + m), __ldg(u + m),
+        __ldg(v + m), __ldg(w + m), sc, o);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int d = 0; d < CP; ++d) {
+        row_store(b_rows + (k * CP + d) * Ms + m,
+                  wq * (o.Jc[0][d] * o.Jp[0][k] + o.Jc[1][d] * o.Jp[1][k]));
+      }
+    }
+  }
+}
+
 template <int MODEL, int ROBUST>
 __global__ void __launch_bounds__(kBlock)
 cost_partial_kernel(const float* __restrict__ ctab, int C,
@@ -246,6 +284,36 @@ bool eqs_robust(int robust, const EqsArgs& a, int rows_bf16, void* b_rows,
   }
 }
 
+// Blocks of K_D's grid-stride loop: 16 resident blocks on each of the
+// H100's 132 SMs, more than enough to keep the row stores in flight.
+constexpr int kPayloadMaxBlocks = 132 * 16;
+
+template <int MODEL, int ROBUST>
+void launch_payload(const EqsArgs& a, int rows_bf16, void* b_rows, cudaStream_t s) {
+  const int64_t need = (static_cast<int64_t>(a.M) + kBlock - 1) / kBlock;
+  const int blocks = static_cast<int>(need < kPayloadMaxBlocks ? need : kPayloadMaxBlocks);
+  if (rows_bf16) {
+    payload_b_kernel<MODEL, ROBUST, __nv_bfloat16><<<blocks, kBlock, 0, s>>>(
+        a.ctab, a.C, a.X3, a.P, a.obs_cam, a.obs_pt, a.u, a.v, a.w, a.scale, a.M,
+        static_cast<__nv_bfloat16*>(b_rows));
+  } else {
+    payload_b_kernel<MODEL, ROBUST, float><<<blocks, kBlock, 0, s>>>(
+        a.ctab, a.C, a.X3, a.P, a.obs_cam, a.obs_pt, a.u, a.v, a.w, a.scale, a.M,
+        static_cast<float*>(b_rows));
+  }
+}
+
+template <int MODEL>
+bool payload_robust(int robust, const EqsArgs& a, int rows_bf16, void* b_rows,
+                    cudaStream_t s) {
+  switch (robust) {
+    case ROBUST_GAUSSIAN: launch_payload<MODEL, ROBUST_GAUSSIAN>(a, rows_bf16, b_rows, s); return true;
+    case ROBUST_HUBER:    launch_payload<MODEL, ROBUST_HUBER>(a, rows_bf16, b_rows, s); return true;
+    case ROBUST_CAUCHY:   launch_payload<MODEL, ROBUST_CAUCHY>(a, rows_bf16, b_rows, s); return true;
+    default: return false;
+  }
+}
+
 template <int MODEL, int ROBUST>
 void launch_cost(const EqsArgs& a, double* partial, int n_blocks, float* out,
                  cudaStream_t s) {
@@ -320,6 +388,31 @@ extern "C" cudaError_t pysfm_cost(
     case MODEL_POSE:   ok = cost_robust<MODEL_POSE>(robust, a, part, n_blocks, o, s); break;
     case MODEL_POSE_K: ok = cost_robust<MODEL_POSE_K>(robust, a, part, n_blocks, o, s); break;
     case MODEL_BAL:    ok = cost_robust<MODEL_BAL>(robust, a, part, n_blocks, o, s); break;
+    default: break;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t pysfm_payload_b(
+    int model, int robust, int rows_bf16, const void* ctab, int C,
+    const void* X3, int P, const void* obs_cam, const void* obs_pt,
+    const void* u, const void* v, const void* w, const void* scale, int M,
+    void* b_rows, void* stream) {
+  using namespace pysfm;
+  if (M <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const EqsArgs a{
+      static_cast<const float*>(ctab), C, static_cast<const float*>(X3), P,
+      static_cast<const int32_t*>(obs_cam), static_cast<const int32_t*>(obs_pt),
+      static_cast<const float*>(u), static_cast<const float*>(v),
+      static_cast<const float*>(w), nullptr, nullptr, nullptr,
+      static_cast<const float*>(scale), M};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool ok = false;
+  switch (model) {
+    case MODEL_POSE:   ok = payload_robust<MODEL_POSE>(robust, a, rows_bf16, b_rows, s); break;
+    case MODEL_POSE_K: ok = payload_robust<MODEL_POSE_K>(robust, a, rows_bf16, b_rows, s); break;
+    case MODEL_BAL:    ok = payload_robust<MODEL_BAL>(robust, a, rows_bf16, b_rows, s); break;
     default: break;
   }
   if (!ok) return cudaErrorInvalidValue;

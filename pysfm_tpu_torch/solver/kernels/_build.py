@@ -50,6 +50,13 @@ _SIGNATURES = {
         [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 9
         + [ctypes.c_int] + [_P] * 6,
     ),
+    # cudaError_t pysfm_payload_b(model, robust, rows_bf16, ctab, C, X3, P,
+    #     obs_cam, obs_pt, u, v, w, scale, M, b_rows, stream)
+    "pysfm_payload_b": (
+        ctypes.c_int,
+        [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
+        + [ctypes.c_int] + [_P] * 2,
+    ),
     # cudaError_t pysfm_cost(model, robust, ctab, C, X3, P, obs_cam, obs_pt,
     #     u, v, w, scale, M, partial, n_blocks, out, stream)
     "pysfm_cost": (

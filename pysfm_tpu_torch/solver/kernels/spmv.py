@@ -1,6 +1,7 @@
-"""The pcg route's kernels: normal-equation build (K_E), robust cost (K_C),
-``Hcp^T x``, ``Hcp w`` and the block-Jacobi diagonal (K_H), each a CUDA
-kernel (``csrc/eqs.cu``, ``csrc/spmv.cu``) with its plain PyTorch version.
+"""The pcg route's kernels: normal-equation build (K_E), the coupling rows
+alone (K_D), robust cost (K_C), ``Hcp^T x``, ``Hcp w`` and the block-Jacobi
+diagonal (K_H), each a CUDA kernel (``csrc/eqs.cu``, ``csrc/spmv.cu``) with
+its plain PyTorch version.
 
 Counterpart of ``pysfm_tpu/solver/kernels/pallas_spmv.py``.  The JAX
 package re-sorts the observations into a grouped stream
@@ -39,7 +40,7 @@ from pysfm_tpu_torch.solver import scale
 from pysfm_tpu_torch.solver.kernels.proj import _MODEL_ID, _ROBUST_ID, _check
 
 # Kernel launches in this process, per wrapper (each adds one per launch).
-KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag")
+KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag", "payload_b")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _OP_ID = {"hcpT_x": 0, "hcp_w": 1, "precond_diag": 2}
@@ -219,6 +220,56 @@ def build_eqs(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust,
                                robust=robust, n_cameras=n_cameras, n_points=n_points)
     return _launch_build_eqs(ops, ctab, X3, robust_scale, cp, model, robust,
                              n_cameras, n_points)
+
+
+# --------------------------------------------------------------------------
+# K_D: the coupling rows alone.
+# --------------------------------------------------------------------------
+
+
+def payload_b_plain(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust):
+    """Plain version of :func:`payload_b`: the B rows of
+    ``scale._payload_rows`` in ``ops.rows_dtype`` (the second output of
+    :func:`build_eqs_plain`)."""
+    B, _, _ = scale._payload_rows(
+        model, robust, robust_scale, ctab, X3, ops.obs_cam, ops.obs_pt,
+        ops.u, ops.v, ops.w,
+    )
+    return B.to(ops.rows_dtype)
+
+
+def payload_b(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust):
+    """Coupling rows of the linearization at ``ctab`` / ``X3`` (K_D; JAX
+    ``payload_b_grouped``): ``b_rows [3*CP, M]`` in ``ops.rows_dtype``,
+    row ``k*CP + d`` = ``w (Jc0d Jp0k + Jc1d Jp1k)``, the ``b_rows`` that
+    :func:`build_eqs` returns.  No solve path calls it."""
+    projection._check_model(model)
+    robust_mod._check(robust)
+    if not _route(X3):
+        return payload_b_plain(ops, ctab, X3, robust_scale, cp=cp, model=model,
+                               robust=robust)
+    from pysfm_tpu_torch.solver.kernels import _build
+
+    dev = X3.device
+    f32 = torch.float32
+    C, P, M = ctab.shape[1], X3.shape[1], ops.n_obs
+    _check_ops(ops, dev)
+    _check("ctab", ctab, f32, (13 + projection.INTR_DIM[model], C), dev)
+    _check("X3", X3, f32, (3, P), dev)
+    _check("robust_scale", robust_scale, f32, (), dev)
+    if ops.rows_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rows_dtype {ops.rows_dtype}: the kernel stores f32 or bf16 rows")
+    if cp != projection.CAM_DOF[model]:
+        raise ValueError(f"cp={cp} is not the {model!r} model's {projection.CAM_DOF[model]}")
+    b_rows = torch.empty((3 * cp, M), dtype=ops.rows_dtype, device=dev)
+    err = _build.library().pysfm_payload_b(
+        _MODEL_ID[model], _ROBUST_ID[robust], int(ops.rows_dtype == torch.bfloat16),
+        ctab.data_ptr(), C, X3.data_ptr(), P, ops.obs_cam.data_ptr(),
+        ops.obs_pt.data_ptr(), ops.u.data_ptr(), ops.v.data_ptr(), ops.w.data_ptr(),
+        robust_scale.data_ptr(), M, b_rows.data_ptr(), _stream(dev),
+    )
+    _launched("payload_b", err)
+    return b_rows
 
 
 # --------------------------------------------------------------------------

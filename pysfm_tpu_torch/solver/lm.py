@@ -1,15 +1,18 @@
-"""Levenberg-Marquardt bundle adjustment: the dense component-major route
-and the pcg route.
+"""Levenberg-Marquardt bundle adjustment: the dense routes and the pcg
+route.
 
 Port of ``pysfm_tpu.solver.lm``.  :func:`solve` dispatches as the JAX
 package does: a :class:`~pysfm_tpu_torch.problem.cm.CMProblem`, or
 ``solver="pcg"``, runs the component-major pcg loop (:func:`cm_lm_loop`:
 ``solver/scale.py``, matrix-free PCG in ``solver/pcg.py``, and with
 ``gops`` the hand-written kernels of ``solver/kernels/spmv.py``); anything
-else runs the dense component-major loop (``_solve_std``: the projection
-kernel of ``solver/kernels/proj.py``, ``schur_cm``).  Accept/reject is
+else runs the dense loop (``_solve_std``, with the projection kernel of
+``solver/kernels/proj.py``).  Accept/reject is
 predicated (``torch.where`` on the candidate) and the damping follows
-Nielsen's schedule, exactly as the JAX loops.
+Nielsen's schedule, exactly as the JAX loops.  The dense loop runs
+component-major (``layout="auto"`` / ``"cm"``: ``schur_cm``) or in the
+standard layout (``layout="std"``: ``schur``, with the std wrapper of the
+projection kernel).
 
 The JAX package runs each loop inside one ``lax.while_loop``.  Here it is a
 host loop over device tensors.  The dense loop reads one scalar per
@@ -30,7 +33,7 @@ from pysfm_tpu_torch.geometry import so3
 from pysfm_tpu_torch.problem import cm
 from pysfm_tpu_torch.problem import problem as problem_mod
 from pysfm_tpu_torch.problem.problem import BundleProblem
-from pysfm_tpu_torch.solver import pcg, scale, schur_cm
+from pysfm_tpu_torch.solver import pcg, scale, schur, schur_cm
 from pysfm_tpu_torch.solver.kernels import proj, spmv
 from pysfm_tpu_torch.utils.config import LMConfig
 
@@ -73,8 +76,9 @@ def solve(
     ``dc_init`` ([C, CP], ``stats.dc_next`` of a previous solve) the CG warm
     start, so a segmented solve continues exactly where a previous one
     stopped.  ``gops`` (:func:`make_grouped_ops`) routes the pcg loop
-    through the kernels of ``solver/kernels/spmv.py``.  The std layout
-    raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+    through the kernels of ``solver/kernels/spmv.py``.  The dense solver
+    runs component-major (``layout="auto"`` / ``"cm"``) or in the standard
+    layout (``layout="std"``: ``solver/schur.py``).
     """
     if isinstance(prob, cm.CMProblem):
         return solve_cm(prob, config, lam_init, nu_init, gops, dc_init)
@@ -89,11 +93,7 @@ def solve(
         return cm.merge_params(prob, cmp), stats
     if config.solver != "dense":
         raise ValueError(f"unknown solver {config.solver!r}")
-    if config.layout == "std":
-        raise NotImplementedError(
-            "layout='std' is not ported yet (ROADMAP.md queue 1, item 8)"
-        )
-    if config.layout not in ("auto", "cm"):
+    if config.layout not in ("auto", "cm", "std"):
         raise ValueError(f"unknown layout {config.layout!r}")
     return _solve_std(prob, config, lam_init, nu_init)
 
@@ -124,17 +124,53 @@ def _linearize(p: BundleProblem, use_kernel: bool):
     return r.T, J_cam.reshape(M, -1).T, J_pt.reshape(M, 6).T, w
 
 
+def _step_cm(p: BundleProblem, lam, use_kernel: bool):
+    """(eqs, grad_inf, dc [C,CP], dp [P,3]) of the component-major route."""
+    rt, Jct, Jpt, wt = _linearize(p, use_kernel)
+    eqs = schur_cm.build_normal_equations_cm(
+        rt, Jct, Jpt, wt, p.obs_cam, p.pt_obs, p.pt_obs_mask, p.n_cameras,
+    )
+    dc, dp = schur_cm.solve_step_cm(
+        eqs, lam, p.obs_cam, p.obs_pt, p.pt_obs, p.pt_obs_mask,
+    )
+    return eqs, schur_cm.grad_inf_cm(eqs), dc, dp
+
+
+def _step_std(p: BundleProblem, lam, use_kernel: bool):
+    """(eqs, grad_inf, dc [C,CP], dp [P,3]) of the standard-layout route: the
+    std wrapper of the projection kernel (``[M, 2, CP]`` blocks), then
+    ``schur`` with the visibility tables."""
+    if use_kernel:
+        r, J_cam, J_pt, w = proj.residuals_and_jacobians(p)
+    else:
+        r, J_cam, J_pt, w = problem_mod.residuals_and_jacobians(p)
+    eqs = schur.build_normal_equations(
+        r, J_cam, J_pt, w, p.obs_cam, p.obs_pt, p.n_cameras, p.n_points,
+        pt_obs=p.pt_obs, pt_obs_mask=p.pt_obs_mask,
+    )
+    grad_inf = torch.maximum(torch.max(torch.abs(eqs.g_c)), torch.max(torch.abs(eqs.g_p)))
+    dc, dp = schur.solve_step_dense(
+        eqs, lam, p.obs_cam, p.obs_pt, pt_obs=p.pt_obs, pt_obs_mask=p.pt_obs_mask,
+    )
+    return eqs, grad_inf, dc, dp
+
+
 def _solve_std(
     prob: BundleProblem,
     config: LMConfig,
     lam_init=None,
     nu_init=None,
 ) -> Tuple[BundleProblem, LMStats]:
-    """The dense-cm LM loop."""
+    """The dense LM loop, component-major (``layout`` "auto" / "cm") or in
+    the standard layout ("std")."""
     dtype, dev = prob.dtype, prob.device
     n_it = config.max_iters
     use_kernel = _use_kernel(config, prob)
     tiny = torch.finfo(dtype).tiny
+    if config.layout == "std":
+        step, predicted = _step_std, schur.predicted_reduction
+    else:
+        step, predicted = _step_cm, schur_cm.predicted_reduction_cm
 
     def scalar(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
@@ -152,17 +188,10 @@ def _solve_std(
     p = prob
     it = 0
     while it < n_it:
-        rt, Jct, Jpt, wt = _linearize(p, use_kernel)
-        eqs = schur_cm.build_normal_equations_cm(
-            rt, Jct, Jpt, wt, p.obs_cam, p.pt_obs, p.pt_obs_mask, p.n_cameras,
-        )
-        grad_inf = schur_cm.grad_inf_cm(eqs)
-        dc, dp = schur_cm.solve_step_cm(
-            eqs, lam, p.obs_cam, p.obs_pt, p.pt_obs, p.pt_obs_mask,
-        )
+        eqs, grad_inf, dc, dp = step(p, lam, use_kernel)
         cand = problem_mod.apply_update(p, dc, dp)
         new_cost = problem_mod.cost(cand)
-        pred = schur_cm.predicted_reduction_cm(eqs, lam, dc, dp)
+        pred = predicted(eqs, lam, dc, dp)
         actual = cost - new_cost
         rho = actual / torch.clamp(pred, min=tiny)
         ok = torch.isfinite(new_cost) & (actual > 0) & (pred > 0)

@@ -38,7 +38,6 @@ import torch
 from pysfm_tpu_torch.solver import scale as scale_mod
 from pysfm_tpu_torch.solver import schur
 from pysfm_tpu_torch.solver.kernels import spmv
-from pysfm_tpu_torch.solver.schur_cm import _cholesky_nan
 from pysfm_tpu_torch.utils import precision as xp
 
 
@@ -67,8 +66,19 @@ class PCGSystem(NamedTuple):
     D_blk: Optional[torch.Tensor] = None  # [C, CP, CP]
 
 
+def _eqs_to_cm(eqs: schur.NormalEqs) -> scale_mod.ScaleEqs:
+    """View a standard-layout NormalEqs as component-major (the
+    segment-sum route's input for small problems and tests)."""
+    cp = eqs.Hcc.shape[-1]
+    hpp6 = torch.stack([eqs.Hpp[:, d, e] for d, e in scale_mod.TRI3])
+    B_cm = eqs.B.permute(2, 1, 0).reshape(3 * cp, -1)
+    return scale_mod.ScaleEqs(
+        Hcc=eqs.Hcc, g_c=eqs.g_c, hpp6=hpp6, g_p=eqs.g_p.T, B_cm=B_cm
+    )
+
+
 def build_pcg_system(
-    eqs: scale_mod.ScaleEqs,
+    eqs,
     lam,
     obs_cam: torch.Tensor,
     obs_pt: torch.Tensor,
@@ -82,9 +92,12 @@ def build_pcg_system(
     """Damp, invert point blocks, build the reduced rhs and the block-Jacobi
     preconditioner: everything except S itself.
 
-    The route: the kernels when ``gops`` is given and the coupling rows live
+    ``eqs`` is a :class:`scale.ScaleEqs` (the native layout) or a
+    :class:`schur.NormalEqs` (converted).  The route: the kernels when ``gops`` is given and the coupling rows live
     only in ``gops.b_rows`` (``eqs.B_cm is None``, as the K_E build returns
     them), else the visibility tables when given, else segment sums."""
+    if isinstance(eqs, schur.NormalEqs):
+        eqs = _eqs_to_cm(eqs)
     C, cp, _ = eqs.Hcc.shape
     Hcc_aug = schur.augment_block_diag(eqs.Hcc, lam)
     hinv6 = scale_mod.sym6_inv(scale_mod.augment6(eqs.hpp6, lam))
@@ -143,11 +156,11 @@ def build_pcg_system(
     # Batched Cholesky inverse of the [CP, CP] diagonal blocks; symmetrize
     # first (summation order) and fall back to the damped Hcc block where a
     # block is not SPD (transiently, at huge lam).  A failed factor is NaN,
-    # never a partial one (schur_cm._cholesky_nan).
+    # never a partial one (schur._cholesky_nan).
     D = 0.5 * (D + D.transpose(-1, -2))
-    L = _cholesky_nan(D)
+    L = schur._cholesky_nan(D)
     ok = torch.isfinite(L).all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
-    L_safe = torch.where(ok, L, _cholesky_nan(Hcc_aug))
+    L_safe = torch.where(ok, L, schur._cholesky_nan(Hcc_aug))
     eye = torch.eye(cp, dtype=D.dtype, device=D.device).expand(D.shape)
     M_inv = torch.cholesky_solve(eye, L_safe)
     return PCGSystem(
@@ -301,7 +314,7 @@ def back_substitute(sys: PCGSystem, dc: torch.Tensor) -> torch.Tensor:
 
 
 def solve_step_pcg_cm3(
-    eqs: scale_mod.ScaleEqs,
+    eqs,
     lam,
     obs_cam: torch.Tensor,
     obs_pt: torch.Tensor,
@@ -318,7 +331,8 @@ def solve_step_pcg_cm3(
     precond_terms: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """One damped step with the point step kept component-major: returns
-    ``(dc [C, CP], dp3 [3, P], n_cg)``.
+    ``(dc [C, CP], dp3 [3, P], n_cg)``.  ``eqs`` is a ScaleEqs or a
+    standard-layout NormalEqs.
 
     ``dc_warm`` ([C, CP]) warm-starts CG with the previous LM iteration's
     camera step; ``gops`` (a :class:`spmv.GroupedOps` with ``b_rows`` set)
@@ -339,7 +353,7 @@ def solve_step_pcg_cm3(
 
 
 def solve_step_pcg(
-    eqs: scale_mod.ScaleEqs,
+    eqs,
     lam,
     obs_cam: torch.Tensor,
     obs_pt: torch.Tensor,

@@ -131,6 +131,13 @@ def build_normal_equations_scale_cm(
     return ScaleEqs(Hcc=Hcc, g_c=g_c, hpp6=pred[:6], g_p=pred[6:], B_cm=B_cm)
 
 
+def build_normal_equations_scale(p, obs_chunk: int = 0) -> ScaleEqs:
+    """Standard-layout entry: converts a BundleProblem to the CM layout (one
+    transpose of the point and observation arrays) and delegates to
+    :func:`build_normal_equations_scale_cm`."""
+    return build_normal_equations_scale_cm(cm.from_problem(p), obs_chunk)
+
+
 def sym6_inv(h6: torch.Tensor) -> torch.Tensor:
     """Inverse of symmetric 3x3 blocks in 6-component form (``[6, N]``)."""
     a, b, c, d, e, f = h6
@@ -181,6 +188,19 @@ def cost_scale_cm(cmp: cm.CMProblem, obs_chunk: int = 0) -> torch.Tensor:
             cmp.obs_w[lo:hi] * robust_mod.rho(cmp.robust, s, cmp.robust_scale)
         ))
     return 0.5 * torch.sum(torch.stack(parts))
+
+
+def cost_scale(p, obs_chunk: int = 0) -> torch.Tensor:
+    """Standard-layout entry for :func:`cost_scale_cm`."""
+    return cost_scale_cm(cm.from_problem(p), obs_chunk)
+
+
+def predicted_reduction_scale(
+    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor
+) -> torch.Tensor:
+    """:func:`predicted_reduction_scale_cm` for a standard-layout point step
+    ``dp [P, 3]``."""
+    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T)
 
 
 def predicted_reduction_scale_cm(

@@ -230,20 +230,6 @@ def back_substitute_cm(system: SchurSystemCM, dc: torch.Tensor) -> torch.Tensor:
     ])
 
 
-def _cholesky_nan(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, NaN where A (or, for a batch, a block of A)
-    is not positive definite.
-
-    ``jax.scipy.linalg.cho_factor`` returns NaN on a non-SPD matrix and the
-    LM loop then rejects the step through ``isfinite(new_cost)``;
-    ``torch.linalg.cholesky`` raises instead.  ``cholesky_ex`` reports the
-    failure in ``info`` without a host sync, and the NaN fill keeps the
-    control flow of the reference.
-    """
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
-
-
 def solve_step_cm(
     eqs: NormalEqsCM,
     lam: torch.Tensor,
@@ -256,7 +242,7 @@ def solve_step_cm(
     C, cp, _ = eqs.Hcc.shape
     system = reduce_cm(eqs, lam, obs_pt, pt_obs, pt_obs_mask, obs_cam)
     Ssym = 0.5 * (system.S + system.S.T)
-    L = _cholesky_nan(Ssym)
+    L = schur._cholesky_nan(Ssym)
     dc = torch.cholesky_solve(system.rhs[:, None], L).reshape(C, cp)
     dp = back_substitute_cm(system, dc)
     return dc, dp.T

@@ -37,9 +37,9 @@ class LMConfig:
     # or "auto" (the kernel iff the problem lives on a CUDA device in f32,
     # the rule the JAX package applies to its TPU kernel).
     jac_backend: str = "auto"
-    # Solver data layout: "cm" (component-major [D, M] rows, see
-    # solver/schur_cm.py), "std" (not ported yet, raises) or "auto" (cm for
-    # the dense solver).
+    # Dense solver data layout: "cm" (component-major [D, M] rows, see
+    # solver/schur_cm.py), "std" ([M, 2, CP] blocks, solver/schur.py) or
+    # "auto" (cm).
     layout: str = "auto"
     # pcg route: warm-start CG with the previous camera step; the CG
     # tolerance sequence ("fixed" cg_tol, or "ew": Eisenstat-Walker forcing

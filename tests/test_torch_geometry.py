@@ -1,4 +1,5 @@
-"""PyTorch port vs the JAX package: SO(3), projection models, robust costs.
+"""PyTorch port vs the JAX package: SO(3), SE(3), projection models, robust
+costs, and the evaluation metrics (``utils/metrics.py``).
 
 Inputs come from a numpy seed and go through both packages as numpy
 arrays.  Both run in f64 on the CPU, so they agree to roundoff: rtol/atol
@@ -11,11 +12,15 @@ import pytest
 import torch
 
 from pysfm_tpu.geometry import projection as jproj
+from pysfm_tpu.geometry import se3 as jse3
 from pysfm_tpu.geometry import so3 as jso3
 from pysfm_tpu.problem import robust as jrobust
+from pysfm_tpu.utils import metrics as jmetrics
 from pysfm_tpu_torch.geometry import projection as tproj
+from pysfm_tpu_torch.geometry import se3 as tse3
 from pysfm_tpu_torch.geometry import so3 as tso3
 from pysfm_tpu_torch.problem import robust as trobust
+from pysfm_tpu_torch.utils import metrics as tmetrics
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -128,3 +133,44 @@ def test_precision_pins_full_f32(rng):
     _close(np.einsum("bij,bj->bi", A, x), xp.matvec(_t(A), _t(x)))
     _close(A @ A, xp.matmul(_t(A), _t(A)))
     _close(np.einsum("bij->bji", A), xp.einsum("bij->bji", _t(A)))
+
+
+@pytest.mark.parametrize("fn", ["transform", "inverse", "compose", "camera_center",
+                                "retract", "exp"])
+def test_se3_matches_jax(rng, fn):
+    R = np.asarray(jso3.exp(jnp.asarray(_rotvecs(rng, 32))))
+    t, X, dw = rng.normal(size=(32, 3)), rng.normal(size=(32, 3)), _rotvecs(rng, 32)
+    args = {
+        "transform": (R, t, X), "inverse": (R, t), "compose": (R, t, R[::-1], X),
+        "camera_center": (R, t), "retract": (R, t, dw, X),
+        "exp": (np.concatenate([dw, X], axis=-1),),
+    }[fn]
+    a = getattr(jse3, fn)(*map(jnp.asarray, args))
+    b = getattr(tse3, fn)(*map(_t, args))
+    for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+        _close(x, y)
+
+
+def test_metrics_match_jax(rng):
+    from pysfm_tpu.pipeline import synthetic as jsyn
+    from pysfm_tpu_torch.problem import problem as tprob
+
+    src = rng.normal(size=(20, 3))
+    R = np.asarray(jso3.exp(jnp.asarray(rng.normal(size=3))))
+    dst = 2.5 * src @ R.T + rng.normal(size=3) + 1e-3 * rng.normal(size=(20, 3))
+    for scale in (True, False):
+        for x, y in zip(jmetrics.umeyama(jnp.asarray(src), jnp.asarray(dst), scale),
+                        tmetrics.umeyama(_t(src), _t(dst), scale)):
+            _close(x, y)
+        _close(jmetrics.ate_rmse(jnp.asarray(src), jnp.asarray(dst), scale),
+               tmetrics.ate_rmse(_t(src), _t(dst), scale))
+    Rs = np.asarray(jso3.exp(jnp.asarray(_rotvecs(rng, 24))))
+    ts = rng.normal(size=(24, 3))
+    _close(jmetrics.camera_centers(jnp.asarray(Rs), jnp.asarray(ts)),
+           tmetrics.camera_centers(_t(Rs), _t(ts)))
+    p = jsyn.make_scene(3, 40, noise_px=0.7, outlier_frac=0.1, seed=4).problem
+    p = p.replace(obs_w=p.obs_w.at[:5].set(0.0))
+    tp = tprob.from_numpy({k: np.asarray(getattr(p, k)) for k in tprob.FIELDS},
+                          p.camera_model, p.robust, device="cpu")
+    np.testing.assert_allclose(tmetrics.reprojection_rmse(tp),
+                               jmetrics.reprojection_rmse(p), rtol=1e-12)

@@ -1,6 +1,6 @@
-"""The slice as a whole: the port's ``solve()`` (dense component-major LM)
-against the JAX package's on the same scene, and the port's ``make_scene``
-against the JAX package's.
+"""The slice as a whole: the port's ``solve()`` (dense LM, component-major
+and standard layout) against the JAX package's on the same scene, and the
+port's ``make_scene`` against the JAX package's.
 
 Tolerances: f64 cost logs within 1e-9 relative with identical accept
 decisions (the two packages sum in other orders, and the differences grow
@@ -51,6 +51,21 @@ def test_solve_matches_jax_f64(renormalize_every):
     np.testing.assert_allclose(pt.X.numpy(), np.asarray(pj.X), rtol=1e-7, atol=1e-9)
     np.testing.assert_allclose(pt.R.numpy(), np.asarray(pj.R), rtol=1e-7, atol=1e-9)
     assert st.costs[-1] < st.costs[0]
+
+
+@pytest.mark.parametrize("model", ["pose", "pose_k", "bal"])
+def test_std_layout_solve_matches_jax_f64(model):
+    """``layout="std"`` (``solver/schur.py``) against the JAX package's std
+    branch, per camera model: the f64 cost log to 1e-9 with identical
+    accept decisions, and the same cost log as the port's cm route."""
+    p = jsyn.make_scene(5, 80, camera_model=model, dtype=np.float64, **SCENE).problem
+    (pj, sj), (pt, st) = _solve_both(p, layout="std", **NO_TOL)
+    np.testing.assert_allclose(st.costs.numpy(), np.asarray(sj.costs), rtol=1e-9)
+    np.testing.assert_array_equal(st.accepted.numpy(), np.asarray(sj.accepted))
+    np.testing.assert_allclose(pt.X.numpy(), np.asarray(pj.X), rtol=1e-7, atol=1e-9)
+    assert st.costs[-1] < st.costs[0]
+    _, s_cm = solve(to_port(p), LMConfig(layout="cm", **NO_TOL))
+    np.testing.assert_allclose(st.costs.numpy(), s_cm.costs.numpy(), rtol=1e-9)
 
 
 def test_solve_matches_jax_f32():
@@ -109,14 +124,13 @@ def test_kernel_route_on_cpu_is_the_plain_route():
 
 
 def test_unported_routes_raise():
-    """The std layout is still to port and raises naming its ROADMAP item;
-    wrong inputs raise.  (The pcg route and CMProblem are ported:
-    ``tests/test_torch_pcg_lm.py``.)"""
+    """Wrong inputs raise.  (Every route is ported: the std layout above,
+    the pcg route and CMProblem in ``tests/test_torch_pcg_lm.py``.)"""
     p = tsyn.make_scene(3, 20, seed=1, device="cpu").problem
     with pytest.raises(TypeError):
         solve(p, LMConfig(jac_backend="cuda"))  # the kernel is f32 only
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(p, LMConfig(layout="std"))
+    with pytest.raises(ValueError, match="unknown layout"):
+        solve(p, LMConfig(layout="blocked"))
     with pytest.raises(TypeError, match="BundleProblem or a CMProblem"):
         solve(object(), LMConfig())
     with pytest.raises(ValueError):

@@ -184,6 +184,14 @@ def test_launch_counts_follow_the_logs(monkeypatch):
     )
     cmp = tcm.from_problem(sc.problem)
     cfg = LMConfig(max_iters=40, **chip_smoke.NO_TOL, **chip_smoke.PCG_MAIN)
-    _, st = solve(cmp, cfg, gops=make_grouped_ops(cmp))
+    gops = make_grouped_ops(cmp)
+    _, st = solve(cmp, cfg, gops=gops)
     assert (~st.accepted).any()
-    assert dict(calls) == chip_smoke._expected_launches(st, cfg)
+    assert {k: calls[k] for k in chip_smoke.SPMV_KERNELS} == chip_smoke._expected_launches(st, cfg)
+    assert calls["payload_b"] == 0  # K_D is on no solve path
+    # A segmented solve: each segment builds and prices its start again.
+    calls.clear()
+    cfg = dataclasses.replace(cfg, max_iters=8)
+    _, st = solve_segmented(cmp, cfg, iters_per_dispatch=3, gops=gops)
+    assert ({k: calls[k] for k in chip_smoke.SPMV_KERNELS}
+            == chip_smoke._expected_launches(st, cfg, seg=3))

@@ -1,6 +1,7 @@
 """The pcg route's kernel module (``solver/kernels/spmv.py``) against the JAX
 package's Pallas kernels (``pallas_spmv``, in interpret mode as
-``tests/test_spmv.py`` runs them) and against the plain JAX twins.
+``tests/test_spmv.py`` runs them) and against the plain JAX twins (K_D's
+plain version against the XLA reference alone: no interpret-mode call).
 
 On the CPU every wrapper runs its kernel's plain version; this is where
 their arithmetic and outputs are held to the TPU kernels.  The CUDA kernels
@@ -219,6 +220,29 @@ def test_plain_versions_match_jax_scale_f64(model, robust):
     D_ref = np.asarray(jsys.D_blk)          # = sym(Hcc_aug - D)
     np.testing.assert_allclose(Hcc_aug - 0.5 * (D_t + D_t.transpose(0, 2, 1)), D_ref,
                                rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("model", ["pose", "pose_k", "bal"])
+def test_payload_b_plain_matches_jax_reference(model):
+    """K_D's plain version against the reference JAX's own K_D test holds
+    the Pallas kernel to (``scale.build_normal_equations_scale_cm(p,
+    0).B_cm``) in f64, and bitwise against the rows of the port's
+    ``build_eqs_plain``; on CPU tensors the wrapper launches nothing and
+    stores ``ops.rows_dtype``."""
+    jp, tp = _bal_problems(np.float64, model, "cauchy", outlier_frac=0.05)
+    ref = np.asarray(jscale.build_normal_equations_scale_cm(jp, 0).B_cm)
+    ops = make_grouped_ops(tp)
+    args = (ops, tcm.cam_table(tp), tp.X3, tp.robust_scale)
+    kw = dict(cp=tp.cam_dof, model=model, robust=tp.robust)
+    launches = dict(spmv.LAUNCHES)
+    b = spmv.payload_b(*args, **kw)
+    assert spmv.LAUNCHES == launches
+    assert b.shape == (3 * tp.cam_dof, tp.n_obs) and b.dtype == torch.float64
+    np.testing.assert_allclose(b.numpy(), ref, rtol=1e-12, atol=1e-12)
+    _, b_e = spmv.build_eqs_plain(*args, **kw, n_cameras=tp.n_cameras, n_points=tp.n_points)
+    assert torch.equal(b, b_e)
+    b16 = spmv.payload_b(ops.replace(rows_dtype=torch.bfloat16), *args[1:], **kw)
+    assert torch.equal(b16, b.to(torch.bfloat16))
 
 
 def test_grouped_ops_layout(rng):
