@@ -25,15 +25,22 @@ Phases (any failure raises and the script exits non-zero):
    K_D ``payload_b``, K_C ``cost``, ``hcpT_x``, ``hcp_w``, K_H
    ``precond_diag``) against their plain versions on small ragged scenes
    (also one with C > 128): 3 camera models x 3 robust kernels, f32 and bf16
-   coupling rows; K_D against K_E's rows too; two launches must agree bit
-   for bit, and f64 tensors must be refused;
+   coupling rows; K_D against K_E's rows too, and K_E's camera-sorted rows
+   ``b_cam`` bitwise ``b_rows[:, cam_perm]``; the two CG products on edge
+   shapes of their plans (a camera without observations, cameras with more
+   than one ``hcp_w`` chunk, points longer than an ``hcpT_x`` tile, x too
+   large for shared memory) for CP 6 / 9 / 10, ``hcpT_x`` in both branches
+   (x in shared memory, x from global memory) and bitwise equal across
+   them; two launches must agree bit for bit, f64 tensors must be refused,
+   and ``hcp_w`` without ``b_cam`` must raise;
 7. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
    "pcg", cg_forcing="ew", ...), gops=make_grouped_ops(...))`` on the
    bench.py headline scene (the same 50 / 10k scene), 30 iterations, with
    the exact launch count of every kernel checked against the LM and CG
    logs, the final cost against the plain route on the card and, on a small
    scene, against the f64 host route; then a torch.profiler trace of one
-   solve (device idle share) and each kernel's time at that shape;
+   solve (device idle share) and each kernel's time at that shape (with
+   ``b_cam`` bitwise ``b_rows[:, cam_perm]`` there);
 8. [pcg venice] the same route on the Venice-scale synthetic BAL scene
    (1712 cameras, 1M points, ~5M observations): kernels against plain at
    that shape, their times, 18 LM iterations with bench/venice.py's
@@ -158,8 +165,19 @@ def phase_build() -> float:
     _build.library()
     regs = sorted({int(n) for n in re.findall(r"Used (\d+) registers", info.log)})
     spills = len([n for n in re.findall(r"(\d+) bytes spill stores", info.log) if n != "0"])
+    # ptxas -v: registers of each kernel's instantiations, by kernel name.
+    by_kernel, name = {}, None
+    for line in info.log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5pysfm(\d+)(\w+)'", line)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            by_kernel.setdefault(name, set()).add(int(m.group(1)))
+            name = None
     print(f"[build] {info.path.name} built={info.built} nvcc {info.seconds:.2f} s; "
-          f"registers/thread {regs}, kernels with spills: {spills}")
+          f"registers/thread {regs}, kernels with spills: {spills}; by kernel "
+          + ", ".join(f"{k} {min(v)}-{max(v)}" for k, v in sorted(by_kernel.items())))
     return info.seconds
 
 
@@ -235,25 +253,31 @@ def _device_ms(fn, n=20) -> float:
     Each call is enqueued behind a sleep kernel, so the device reaches it
     only after the host has queued all of its launches: the events then time
     the device's work and not the host's launch overhead (which, for a ~7 us
-    kernel, is the larger of the two).
+    kernel, is the larger of the two). A call whose enqueueing outlasted the
+    sleep (a slow or shared host) is timed again behind a longer sleep.
     """
     fn()
     torch.cuda.synchronize()
-    times = []
+    times, cycles = [], SLEEP_CYCLES
     for _ in range(n):
-        s0, s1, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        s0.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        s1.record()
-        t0 = time.perf_counter()
-        fn()
-        end.record()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        end.synchronize()
-        if host_ms >= s0.elapsed_time(s1):
+        for _attempt in range(4):
+            s0, s1, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            s0.record()
+            torch.cuda._sleep(cycles)
+            s1.record()
+            t0 = time.perf_counter()
+            fn()
+            end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            sleep_ms = s0.elapsed_time(s1)
+            if host_ms < sleep_ms:
+                break
+            cycles = int(cycles * 2 * host_ms / sleep_ms) + 1
+        else:
             raise AssertionError(
-                f"enqueueing took {host_ms:.2f} ms, longer than the sleep: "
-                "the events would time host gaps")
+                f"enqueueing took {host_ms:.2f} ms, longer than the sleep of {sleep_ms:.2f} "
+                "ms four times: the events would time host gaps")
         times.append(s1.elapsed_time(end))
     return statistics.median(times)
 
@@ -507,14 +531,14 @@ def _spmv_inputs(p, ops, eqs, seed=0):
             "precond_diag": (hinv6, p.n_cameras)}
 
 
-def _spmv_pairs(p, ops, eqs, b_rows):
+def _spmv_pairs(p, ops, eqs, b_rows, b_cam):
     """{name: (kernel call, plain call)} for the six kernels on p."""
     from pysfm_tpu_torch.solver.kernels import spmv
 
     args, kw = _eqs_args(p, ops)
     ckw = dict(model=p.camera_model, robust=p.robust)
     dkw = dict(cp=p.cam_dof, **ckw)
-    ops_it = ops.replace(b_rows=b_rows)
+    ops_it = ops.replace(b_rows=b_rows, b_cam=b_cam)
     vec = _spmv_inputs(p, ops, eqs)
     pairs = {
         "build_eqs": (lambda: spmv.build_eqs(*args, **kw),
@@ -533,10 +557,10 @@ def _spmv_pairs(p, ops, eqs, b_rows):
 
 def _flat(out):
     """A kernel's outputs as a list of tensors (K_E: Hcc, g_c, hpp6, g_p,
-    b_rows)."""
+    b_rows, b_cam)."""
     if isinstance(out, tuple):
-        eqs, b_rows = out
-        return [eqs.Hcc, eqs.g_c, eqs.hpp6, eqs.g_p, b_rows]
+        eqs, b_rows, b_cam = out
+        return [eqs.Hcc, eqs.g_c, eqs.hpp6, eqs.g_p, b_rows, b_cam]
     return [out]
 
 
@@ -582,16 +606,25 @@ def _kd_vs_ke(p, ops, b_rows) -> bool:
     return torch.equal(b, b_rows)
 
 
+def _b_cam_exact(label, ops, b_rows, b_cam) -> None:
+    """K_E's camera-sorted rows must be its point-sorted rows permuted, bit
+    for bit (the same linearize and row expression in both passes)."""
+    if not torch.equal(b_cam, b_rows[:, ops.cam_perm.long()]):
+        raise AssertionError(f"{label}: build_eqs b_cam != b_rows[:, cam_perm] bitwise")
+
+
 def _kernels_vs_plain(p, ops):
-    """All six kernels against their plain versions on problem p, and K_D
-    against K_E; returns ({name: worst abs error}, K_D == K_E bitwise)."""
+    """All six kernels against their plain versions on problem p, K_D
+    against K_E, and K_E's b_cam against its b_rows; returns ({name: worst
+    abs error}, K_D == K_E bitwise)."""
     from pysfm_tpu_torch.solver.kernels import spmv
 
     bf16 = ops.rows_dtype == torch.bfloat16
     args, kw = _eqs_args(p, ops)
-    eqs, b_rows = spmv.build_eqs(*args, **kw)
+    eqs, b_rows, b_cam = spmv.build_eqs(*args, **kw)
+    _b_cam_exact(f"C={p.n_cameras} {p.camera_model}/{p.robust}", ops, b_rows, b_cam)
     errs = {name: _check_pair(name, kernel, plain, bf16)
-            for name, (kernel, plain) in _spmv_pairs(p, ops, eqs, b_rows).items()}
+            for name, (kernel, plain) in _spmv_pairs(p, ops, eqs, b_rows, b_cam).items()}
     return errs, _kd_vs_ke(p, ops, b_rows)
 
 
@@ -636,12 +669,87 @@ def phase_spmv_small() -> None:
             refused += 1
     if refused != 4:
         raise AssertionError("a pcg kernel wrapper accepted f64 CUDA tensors")
+    # hcp_w's kernel reads only the camera-sorted rows: without them it raises.
+    ops32 = make_grouped_ops(p)
+    args, kw = _eqs_args(p, ops32)
+    _, b_rows, _ = spmv.build_eqs(*args, **kw)
+    try:
+        spmv.hcp_w(ops32.replace(b_rows=b_rows), torch.zeros((3, p.n_points), device="cuda"),
+                   p.n_cameras, cp=p.cam_dof)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("hcp_w ran on CUDA GroupedOps without b_cam")
     print(f"[spmv kernels] 3 models x 3 robust kernels, f32 and bf16 rows, scenes (C, P, M) "
           f"{sorted(shapes)}: kernel == plain, max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (bound {KERNEL_TOL} x (max|ref|+1); bf16 rows within one ulp); two launches "
-          f"bitwise equal; f64 refused; payload_b (K_D) == build_eqs (K_E) rows within bound, "
-          f"bitwise equal in {sum(kd_bitwise)} of {len(kd_bitwise)} cases")
+          f"bitwise equal; f64 refused; hcp_w without b_cam refused; build_eqs b_cam == "
+          f"b_rows[:, cam_perm] bitwise in all {len(kd_bitwise)} cases; payload_b (K_D) == "
+          f"build_eqs (K_E) rows within bound, bitwise equal in {sum(kd_bitwise)} of "
+          f"{len(kd_bitwise)} cases")
+    phase_spmv_edges()
+
+
+def phase_spmv_edges() -> None:
+    """hcpT_x and hcp_w against their plain versions on the edge shapes of
+    their plans, CP 6 / 9 / 10, f32 and bf16 rows; two launches bitwise
+    equal.  hcpT_x runs as the path calls it (x placed by size) and in each
+    branch, x in shared memory and x from global memory, which must agree
+    bit for bit; x in shared memory must be refused where it does not fit."""
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    worst = {"hcpT_x": 0.0, "hcp_w": 0.0}
+    shapes, refused = [], set()
+    for kind in synthetic.PLAN_EDGES[1:]:
+        obs_cam, obs_pt, C, P = synthetic.plan_edge_incidence(kind)
+        M = obs_cam.shape[0]
+        dev_ids = [torch.from_numpy(a).to("cuda") for a in (obs_cam, obs_pt)]
+        z = torch.zeros(M, device="cuda")
+        ops = spmv.grouped_ops(*dev_ids, C, P, z, z, z, torch.float32)
+        track = torch.diff(ops.pt_ptr)
+        shapes.append((kind, C, P, M, int(track.max()),
+                       int(torch.diff(ops.cam_ptr).max()), int((torch.diff(ops.cam_ptr) == 0).sum())))
+        g = torch.Generator(device="cuda").manual_seed(len(shapes))
+        for cp in (6, 9, 10):
+            b32 = torch.randn((3 * cp, M), generator=g, device="cuda")
+            x = torch.randn((cp, C), generator=g, device="cuda")
+            w3 = torch.randn((3, P), generator=g, device="cuda")
+            for rows in (torch.float32, torch.bfloat16):
+                b = b32.to(rows)
+                it = ops.replace(rows_dtype=rows, b_rows=b, b_cam=b[:, ops.cam_perm.long()])
+                checks = [
+                    ("hcpT_x", lambda: spmv.hcpT_x(it, x, cp=cp),
+                     lambda: spmv.hcpT_x_plain(it, x, cp=cp)),
+                    ("hcpT_x (x from global memory)",
+                     lambda: spmv._launch_hcpT_x(it, x, cp, False),
+                     lambda: spmv.hcpT_x_plain(it, x, cp=cp)),
+                    ("hcp_w", lambda: spmv.hcp_w(it, w3, C, cp=cp),
+                     lambda: spmv.hcp_w_plain(it, w3, C, cp=cp))]
+                try:
+                    shared = spmv._launch_hcpT_x(it, x, cp, True)
+                except RuntimeError:
+                    refused.add((kind, cp))
+                else:
+                    if not torch.equal(shared, spmv._launch_hcpT_x(it, x, cp, False)):
+                        raise AssertionError(f"hcpT_x ({kind}, CP={cp}): the two branches differ")
+                    checks.append(("hcpT_x (x in shared memory)",
+                                   lambda: spmv._launch_hcpT_x(it, x, cp, True),
+                                   lambda: spmv.hcpT_x_plain(it, x, cp=cp)))
+                for name, kernel, plain in checks:
+                    err = _check_pair(f"{name} ({kind}, CP={cp}, {rows})", kernel, plain, False)
+                    key = name.split()[0]
+                    worst[key] = max(worst[key], err)
+    print("[spmv kernels] edge shapes (kind, C, P, M, longest track, most observations of a "
+          f"camera, cameras without observations) {shapes}, CP 6/9/10, f32 and bf16 rows: "
+          f"kernel == plain, max abs err hcpT_x {worst['hcpT_x']:.3e} (both branches), hcp_w "
+          f"{worst['hcp_w']:.3e}; two launches bitwise equal; hcpT_x with x in shared memory "
+          f"== x from global memory bitwise, refused at (kind, CP) {sorted(refused)} "
+          f"(chunk {spmv.HCP_W_CHUNK}, tile {spmv.HCPT_X_TILE})")
+    # 6000 cameras x CP 10 x 4 B = 240 KB of x: over the H100's 227 KB a block.
+    if refused != {("x_too_large_for_shared_memory", 10)}:
+        raise AssertionError(f"hcpT_x refused x in shared memory at {sorted(refused)}")
 
 
 def _spmv_cost(name, p, ops, b_rows):
@@ -651,6 +759,8 @@ def _spmv_cost(name, p, ops, b_rows):
     rb = b_rows.element_size() * 3 * cp * M
     ntri = cp * (cp + 1) // 2
     if name == "build_eqs":
+        # The function's bytes: one copy of the rows (the camera-sorted copy
+        # is this port's layout for hcp_w; chip_smoke prints its cost apart).
         nbytes = (4 * ((13 + p.intr.shape[1]) * C + 3 * P + 6 * M + P + C + 3)
                   + rb + 4 * (C * cp * cp + C * cp + 9 * P))
         ops = M * (LINEARIZE_OPS + 4 * 3 * cp + 5 * (ntri + cp) + 5 * 9)
@@ -697,11 +807,14 @@ def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
     from pysfm_tpu_torch.solver.kernels import spmv
 
     args, kw = _eqs_args(p, ops)
-    eqs, b_rows = spmv.build_eqs(*args, **kw)
-    pairs = _spmv_pairs(p, ops, eqs, b_rows)
+    eqs, b_rows, b_cam = spmv.build_eqs(*args, **kw)
+    _b_cam_exact(label, ops, b_rows, b_cam)
+    pairs = _spmv_pairs(p, ops, eqs, b_rows, b_cam)
     kd_same = _kd_vs_ke(p, ops, b_rows)
-    print(f"[{label}] payload_b (K_D) == build_eqs (K_E) rows at M={p.n_obs}: within bound, "
-          f"bitwise equal {kd_same}")
+    print(f"[{label}] build_eqs b_cam == b_rows[:, cam_perm] bitwise at M={p.n_obs}; "
+          f"payload_b (K_D) == build_eqs (K_E) rows: within bound, bitwise equal {kd_same}; "
+          f"the b_cam store alone: {b_cam.numel() * b_cam.element_size() / 1e6:.1f} MB, "
+          f"bound {_bound(b_cam.numel() * b_cam.element_size(), 0)[0]:.4f} ms")
     hcp, hcpT = _sparse_hcp(p, ops, b_rows)
     vec = _spmv_inputs(p, ops, eqs)
     x_flat = vec["hcpT_x"][0].T.reshape(-1, 1).contiguous()       # (c*CP + d)
@@ -715,6 +828,17 @@ def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
     _, ok_y = _max_err([library["hcp_w"]().reshape(-1, p.cam_dof).T], [y])
     if not (ok_u and ok_y):
         raise AssertionError(f"{label}: torch.sparse yardstick disagrees with the kernels")
+    # hcpT_x's two branches at this shape: x in shared memory (as the path
+    # runs it where x fits) against x gathered from global memory.
+    x = vec["hcpT_x"][0]
+    ops_it = ops.replace(b_rows=b_rows, b_cam=b_cam)
+    if not torch.equal(spmv._launch_hcpT_x(ops_it, x, p.cam_dof, True),
+                       spmv._launch_hcpT_x(ops_it, x, p.cam_dof, False)):
+        raise AssertionError(f"{label}: hcpT_x's two branches differ")
+    ms_x = [_device_ms(lambda sh=sh: spmv._launch_hcpT_x(ops_it, x, p.cam_dof, sh), n)
+            for sh in (True, False, True, False)]
+    print(f"[{label}] hcpT_x device time, x in shared memory {ms_x[0]:.4f}, {ms_x[2]:.4f} ms; "
+          f"x from global memory {ms_x[1]:.4f}, {ms_x[3]:.4f} ms | {smi}")
     out = {}
     for name, (kernel, plain) in pairs.items():
         err = _check_pair(name, kernel, plain, False)

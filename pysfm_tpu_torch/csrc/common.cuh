@@ -20,6 +20,13 @@ __device__ __forceinline__ float row_load(const float* p) { return *p; }
 __device__ __forceinline__ float row_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+// The same loads with the streaming hint (ld.global.cs, evict first), for
+// rows that a kernel reads once, so that the vectors it gathers stay in L2.
+__device__ __forceinline__ float row_load_stream(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float row_load_stream(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
 __device__ __forceinline__ void row_store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void row_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);

@@ -1,10 +1,11 @@
 // Normal-equation build (K_E), coupling rows alone (K_D) and robust cost
 // (K_C) of the pcg route.
 //
-// Replaces the Pallas TPU kernels pysfm_tpu/solver/kernels/pallas_spmv.py
-// build_eqs_grouped (_ke_kernel), payload_b_grouped (_kd_kernel) and
-// cost_grouped (_kc_kernel).  Inputs are
-// the CMProblem's own arrays, observations sorted by point:
+// Replaces the Pallas TPU kernels of pysfm_tpu/solver/kernels/pallas_spmv.py
+// build_eqs_grouped (K_E, _ke_kernel, :843 / :929), payload_b_grouped (K_D,
+// _kd_kernel, :703 / :762) and cost_grouped (K_C, _kc_kernel, :1091 /
+// :1149).  Inputs are the CMProblem's own arrays, observations sorted by
+// point:
 //   ctab [Dc, C]  packed camera table (problem/cm.py: cam_table)
 //   X3 [3, P]     points, component-major
 //   obs_cam, obs_pt, u, v, w [M]
@@ -12,16 +13,22 @@
 //   cam_ptr [C+1], cam_perm [M]  observation ids stably sorted by camera
 //
 // K_E writes, for the linearization at the current parameters,
-//   b_rows [3*CP, M]  row k*CP + d = w (Jc0d Jp0k + Jc1d Jp1k), f32 or bf16
+//   b_rows [3*CP, M]  row k*CP + d = w (Jc0d Jp0k + Jc1d Jp1k), f32 or bf16,
+//                     point-sorted (read by hcpT_x and K_H)
+//   b_cam [3*CP, M]   the same rows camera-sorted, b_cam[:, j] =
+//                     b_rows[:, cam_perm[j]] bit for bit (read by hcp_w)
 //   hpp6 [6, P], g_p [3, P]       point blocks (lower triangle) and gradient
 //   Hcc [C, CP, CP], g_c [C, CP]  camera blocks (full, symmetric) and gradient
 // in two passes that share one device function (linearize, in
-// project_jac.cuh), so they see the same residuals, Jacobians and weights:
+// project_jac.cuh) and one row expression (coupling_row), so they see the
+// same residuals, Jacobians and weights and store the same row bits:
 // - point pass: one thread per point walks its CSR range in order, writes
 //   the b_rows columns and keeps the 6 + 3 point sums in registers;
 // - camera pass: one block per camera walks cam_perm, recomputes the
-//   projection (cheap next to storing [tri(CP) + CP, M] rows) and reduces
-//   the tri(CP) + CP camera sums with block_sum (common.cuh).
+//   projection (cheap next to storing the rows again), stores column j of
+//   b_cam (the JAX package's permute_b_rows, :150, done where the rows are
+//   computed) and reduces the tri(CP) + CP camera sums with block_sum
+//   (common.cuh).
 // K_D writes b_rows alone: one thread per observation (grid-stride), the
 // same linearize call and row expression as K_E's point pass, so neighbouring
 // threads store neighbouring columns of every row (coalesced, unlike K_E's
@@ -30,16 +37,22 @@
 // double, then one block adds the partials in a fixed order.
 // No atomics anywhere: every output is the same bit for bit on every run.
 //
-// Bound on the H100 SXM (3.35 TB/s): K_E reads ~24 B an observation (ids,
-// u, v, w, the cam_perm entry) and writes 3*CP*4 B of b_rows (72 B for the
-// pose model in f32), so it is bound by the b_rows store; the tables ctab
-// and X3 are L2-resident or read once.  At the Venice scale (M ~ 5M) that
-// is ~0.5 GB, ~0.14 ms.  K_D reads 20 B an observation and writes the same
-// rows: ~0.46 GB, ~0.14 ms.  K_C reads ~24 B an observation, ~0.04 ms there.
-// The point pass writes b_rows strided by the track length within a warp
-// (threads own neighbouring points), so its stores coalesce only partly;
-// the camera pass reads u, v, w, obs_pt through cam_perm, scattered.  Both
-// are the simple first design; measured times are in PERF.md.
+// Bound on the H100 SXM (3.35 TB/s): the function (JAX build_eqs_grouped)
+// reads ~24 B an observation (ids, u, v, w, the cam_perm entry) and writes
+// one copy of the rows, 3*CP*4 B (72 B for the pose model in f32), so it is
+// bound by the row stores; the tables ctab and X3 are L2-resident or read
+// once.  At the Venice scale (M ~ 5M) that is ~0.53 GB, ~0.16 ms.  The
+// second copy, b_cam, is this port's layout for hcp_w, not part of the
+// function: it costs 3*CP*4*M more bytes stored (360 MB at Venice in f32,
+// 180 MB in bf16; ~0.11 ms more at the memory rate), reported apart.  The
+// LM loop frees a linearization before it builds the next, so one pair of
+// copies is live.  K_D reads 20 B an
+// observation and writes one copy of the rows: ~0.46 GB, ~0.14 ms.  K_C
+// reads ~24 B an observation, ~0.04 ms there.  The point pass writes b_rows
+// strided by the track length within a warp (threads own neighbouring
+// points), so its stores coalesce only partly; the camera pass reads u, v,
+// w, obs_pt through cam_perm, scattered, and stores b_cam coalesced.  Both
+// passes are the first design; measured times are in PERF.md.
 //
 // C entries, called through ctypes: they launch on the given stream,
 // allocate nothing, do not synchronize, and return cudaGetLastError().
@@ -47,6 +60,15 @@
 #include "project_jac.cuh"
 
 namespace pysfm {
+
+// Coupling row k*CP + d of one observation, w (Jc0d Jp0k + Jc1d Jp1k): the
+// one expression of every kernel that stores rows, so their rows agree bit
+// for bit.
+template <int MODEL>
+__device__ __forceinline__ float coupling_row(const ProjJac<MODEL>& o, float wq, int k,
+                                              int d) {
+  return wq * (o.Jc[0][d] * o.Jp[0][k] + o.Jc[1][d] * o.Jp[1][k]);
+}
 
 template <int MODEL, int ROBUST, typename TR>
 __global__ void __launch_bounds__(kBlock)
@@ -78,8 +100,7 @@ eqs_point_kernel(const float* __restrict__ ctab, int C,
     for (int k = 0; k < 3; ++k) {
 #pragma unroll
       for (int d = 0; d < CP; ++d) {
-        row_store(b_rows + (k * CP + d) * Ms + m,
-                  wq * (o.Jc[0][d] * o.Jp[0][k] + o.Jc[1][d] * o.Jp[1][k]));
+        row_store(b_rows + (k * CP + d) * Ms + m, coupling_row(o, wq, k, d));
       }
     }
     const float wr0 = wq * o.r[0];
@@ -100,7 +121,7 @@ eqs_point_kernel(const float* __restrict__ ctab, int C,
   for (int k = 0; k < 3; ++k) g_p[k * Ps + p] = g[k];
 }
 
-template <int MODEL, int ROBUST>
+template <int MODEL, int ROBUST, typename TR>
 __global__ void __launch_bounds__(kBlock)
 eqs_camera_kernel(const float* __restrict__ ctab, int C,
                   const float* __restrict__ X3, int P,
@@ -109,7 +130,8 @@ eqs_camera_kernel(const float* __restrict__ ctab, int C,
                   const float* __restrict__ w,
                   const int32_t* __restrict__ cam_ptr,
                   const int32_t* __restrict__ cam_perm,
-                  const float* __restrict__ scale,
+                  const float* __restrict__ scale, int M,
+                  TR* __restrict__ b_cam,           // [3*CP, M], camera-sorted
                   float* __restrict__ Hcc,          // [C, CP, CP]
                   float* __restrict__ g_c) {        // [C, CP]
   constexpr int CP = ModelTraits<MODEL>::CP;
@@ -117,6 +139,7 @@ eqs_camera_kernel(const float* __restrict__ ctab, int C,
   constexpr int NV = NT + CP;
   __shared__ float smem[kBlock / 32 * NV];
   const int c = blockIdx.x;
+  const size_t Ms = static_cast<size_t>(M);
   const float sc = __ldg(scale);
   float acc[NV];
 #pragma unroll
@@ -128,6 +151,15 @@ eqs_camera_kernel(const float* __restrict__ ctab, int C,
     const float wq = linearize<MODEL, ROBUST>(
         ctab, C, X3, P, c, __ldg(obs_pt + m), __ldg(u + m), __ldg(v + m),
         __ldg(w + m), sc, o);
+    // Column j of the camera-sorted copy: neighbouring threads store
+    // neighbouring columns.
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int d = 0; d < CP; ++d) {
+        row_store(b_cam + (k * CP + d) * Ms + j, coupling_row(o, wq, k, d));
+      }
+    }
     const float wr0 = wq * o.r[0];
     const float wr1 = wq * o.r[1];
 #pragma unroll
@@ -176,8 +208,7 @@ payload_b_kernel(const float* __restrict__ ctab, int C,
     for (int k = 0; k < 3; ++k) {
 #pragma unroll
       for (int d = 0; d < CP; ++d) {
-        row_store(b_rows + (k * CP + d) * Ms + m,
-                  wq * (o.Jc[0][d] * o.Jp[0][k] + o.Jc[1][d] * o.Jp[1][k]));
+        row_store(b_rows + (k * CP + d) * Ms + m, coupling_row(o, wq, k, d));
       }
     }
   }
@@ -242,45 +273,44 @@ struct EqsArgs {
   int M;
 };
 
+// K_E's outputs: the rows in both orders, then the camera and point sums.
+struct EqsOut {
+  void* b_rows;
+  void* b_cam;
+  float* Hcc;
+  float* g_c;
+  float* hpp6;
+  float* g_p;
+};
+
 template <int MODEL, int ROBUST, typename TR>
-void launch_eqs(const EqsArgs& a, TR* b_rows, float* Hcc, float* g_c,
-                float* hpp6, float* g_p, cudaStream_t s) {
+void launch_eqs(const EqsArgs& a, const EqsOut& out, cudaStream_t s) {
   const int pblocks = (a.P + kBlock - 1) / kBlock;
   eqs_point_kernel<MODEL, ROBUST, TR><<<pblocks, kBlock, 0, s>>>(
       a.ctab, a.C, a.X3, a.P, a.obs_cam, a.u, a.v, a.w, a.pt_ptr, a.scale,
-      a.M, b_rows, hpp6, g_p);
-  eqs_camera_kernel<MODEL, ROBUST><<<a.C, kBlock, 0, s>>>(
+      a.M, static_cast<TR*>(out.b_rows), out.hpp6, out.g_p);
+  eqs_camera_kernel<MODEL, ROBUST, TR><<<a.C, kBlock, 0, s>>>(
       a.ctab, a.C, a.X3, a.P, a.obs_pt, a.u, a.v, a.w, a.cam_ptr, a.cam_perm,
-      a.scale, Hcc, g_c);
+      a.scale, a.M, static_cast<TR*>(out.b_cam), out.Hcc, out.g_c);
 }
 
 template <int MODEL, int ROBUST>
-void launch_eqs_rows(const EqsArgs& a, int rows_bf16, void* b_rows, float* Hcc,
-                     float* g_c, float* hpp6, float* g_p, cudaStream_t s) {
+void launch_eqs_rows(const EqsArgs& a, int rows_bf16, const EqsOut& out, cudaStream_t s) {
   if (rows_bf16) {
-    launch_eqs<MODEL, ROBUST>(a, static_cast<__nv_bfloat16*>(b_rows), Hcc, g_c,
-                              hpp6, g_p, s);
+    launch_eqs<MODEL, ROBUST, __nv_bfloat16>(a, out, s);
   } else {
-    launch_eqs<MODEL, ROBUST>(a, static_cast<float*>(b_rows), Hcc, g_c, hpp6,
-                              g_p, s);
+    launch_eqs<MODEL, ROBUST, float>(a, out, s);
   }
 }
 
 template <int MODEL>
-bool eqs_robust(int robust, const EqsArgs& a, int rows_bf16, void* b_rows,
-                float* Hcc, float* g_c, float* hpp6, float* g_p, cudaStream_t s) {
+bool eqs_robust(int robust, const EqsArgs& a, int rows_bf16, const EqsOut& out,
+                cudaStream_t s) {
   switch (robust) {
-    case ROBUST_GAUSSIAN:
-      launch_eqs_rows<MODEL, ROBUST_GAUSSIAN>(a, rows_bf16, b_rows, Hcc, g_c, hpp6, g_p, s);
-      return true;
-    case ROBUST_HUBER:
-      launch_eqs_rows<MODEL, ROBUST_HUBER>(a, rows_bf16, b_rows, Hcc, g_c, hpp6, g_p, s);
-      return true;
-    case ROBUST_CAUCHY:
-      launch_eqs_rows<MODEL, ROBUST_CAUCHY>(a, rows_bf16, b_rows, Hcc, g_c, hpp6, g_p, s);
-      return true;
-    default:
-      return false;
+    case ROBUST_GAUSSIAN: launch_eqs_rows<MODEL, ROBUST_GAUSSIAN>(a, rows_bf16, out, s); return true;
+    case ROBUST_HUBER:    launch_eqs_rows<MODEL, ROBUST_HUBER>(a, rows_bf16, out, s); return true;
+    case ROBUST_CAUCHY:   launch_eqs_rows<MODEL, ROBUST_CAUCHY>(a, rows_bf16, out, s); return true;
+    default: return false;
   }
 }
 
@@ -341,7 +371,8 @@ extern "C" cudaError_t pysfm_build_eqs(
     const void* X3, int P, const void* obs_cam, const void* obs_pt,
     const void* u, const void* v, const void* w, const void* pt_ptr,
     const void* cam_ptr, const void* cam_perm, const void* scale, int M,
-    void* b_rows, void* Hcc, void* g_c, void* hpp6, void* g_p, void* stream) {
+    void* b_rows, void* b_cam, void* Hcc, void* g_c, void* hpp6, void* g_p,
+    void* stream) {
   using namespace pysfm;
   if (M <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
   const EqsArgs a{
@@ -351,16 +382,14 @@ extern "C" cudaError_t pysfm_build_eqs(
       static_cast<const float*>(w), static_cast<const int32_t*>(pt_ptr),
       static_cast<const int32_t*>(cam_ptr), static_cast<const int32_t*>(cam_perm),
       static_cast<const float*>(scale), M};
-  float* H = static_cast<float*>(Hcc);
-  float* gc = static_cast<float*>(g_c);
-  float* hp = static_cast<float*>(hpp6);
-  float* gp = static_cast<float*>(g_p);
+  const EqsOut out{b_rows, b_cam, static_cast<float*>(Hcc), static_cast<float*>(g_c),
+                   static_cast<float*>(hpp6), static_cast<float*>(g_p)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (model) {
-    case MODEL_POSE:   ok = eqs_robust<MODEL_POSE>(robust, a, rows_bf16, b_rows, H, gc, hp, gp, s); break;
-    case MODEL_POSE_K: ok = eqs_robust<MODEL_POSE_K>(robust, a, rows_bf16, b_rows, H, gc, hp, gp, s); break;
-    case MODEL_BAL:    ok = eqs_robust<MODEL_BAL>(robust, a, rows_bf16, b_rows, H, gc, hp, gp, s); break;
+    case MODEL_POSE:   ok = eqs_robust<MODEL_POSE>(robust, a, rows_bf16, out, s); break;
+    case MODEL_POSE_K: ok = eqs_robust<MODEL_POSE_K>(robust, a, rows_bf16, out, s); break;
+    case MODEL_BAL:    ok = eqs_robust<MODEL_BAL>(robust, a, rows_bf16, out, s); break;
     default: break;
   }
   if (!ok) return cudaErrorInvalidValue;

@@ -2,103 +2,202 @@
 // block-Jacobi preconditioner diagonal.
 //
 // Replaces the Pallas TPU kernels of pysfm_tpu/solver/kernels/pallas_spmv.py:
-//   hcpT_x        <- hcpT_x_grouped (K_A) and hcpT_x_grouped2 (K_A2)
+//   hcpT_x        <- hcpT_x_grouped (K_A, :300 / :343) and hcpT_x_grouped2
+//                    (K_A2, :522 / :569)
 //                    u[s, p] = sum_{m of p} sum_d B[s*CP+d, m] x[d, cam(m)]
-//   hcp_w         <- hcp_w_grouped (K_B) and hcp_w_grouped2 (K_B2)
-//                    y[d, c] = sum_{m of c} sum_s B[s*CP+d, m] w[s, pt(m)]
-//   precond_diag  <- precond_diag_grouped (K_H)
+//   hcp_w         <- hcp_w_grouped (K_B, :407 / :444) and hcp_w_grouped2
+//                    (K_B2, :609 / :654)
+//                    y[d, c] = sum_{m of c} sum_s B[s*CP+d, m] w3[s, pt(m)]
+//   precond_diag  <- precond_diag_grouped (K_H, :1002 / :1046)
 //                    D[c] = sum_{m of c} B_m Hinv[pt(m)] B_m^T
-// The TPU kernels need a grouped observation stream because Mosaic's only
-// fast gather is local to one (8, 128) register; K_A2/K_B2 exist only to
-// spread the TPU's fixed cost per grid step.  On Hopper a thread gathers
-// from L2 freely, so the kernels here read the CMProblem's own point-sorted
-// order: b_rows [3*CP, M] is the B_cm layout, points own CSR ranges
-// (pt_ptr), and cameras own ranges of cam_perm (observation ids stably
-// sorted by camera).
+// The TPU kernels stream one grouped copy of the rows (permute_b_rows, :150)
+// and reduce by point with a segmented scan (_seg_scan, :182), because
+// Mosaic's one fast gather is local to an (8, 128) register.  Here K_E
+// (eqs.cu) writes the rows twice, once in each order a product reads:
+//   b_rows [3*CP, M]  point-sorted (the CMProblem's order, the B_cm layout)
+//   b_cam  [3*CP, M]  camera-sorted: b_cam[:, j] = b_rows[:, cam_perm[j]]
+// so both products stream their rows in order, neighbouring threads on
+// neighbouring columns of each row (coalesced; a warp reads 128 B of a row
+// in f32).  A static plan, built once per problem (spmv.py: grouped_ops),
+// cuts each stream into pieces a block can own:
 //
-// - hcpT_x: one thread per point sums its CSR range in order; x [CP, C]
-//   (at most 1712 x 10 floats) stays in L2.
-// - hcp_w, precond_diag: one block per camera walks its cam_perm range and
-//   reduces with block_sum (common.cuh); at the 50-camera headline scene
-//   that is 50 blocks on 132 SMs.
-// No atomics: every output is the same bit for bit on every run.
+// - hcpT_x reads b_rows.  Point-aligned tiles (tile_pt): a tile holds whole
+//   points and at most tile_obs observations, or one point alone when its
+//   track is longer than half a tile.  Thread m of a tile computes the 3
+//   partial sums of observation m, parks them in shared memory, and one
+//   thread per point then adds its range there in order (the segmented
+//   reduction); a lone point is a block-wide sum over as many rounds as its
+//   track needs.  Blocks are persistent (as many as fit on the SMs) and walk
+//   the tiles; x [CP, C] is copied into shared memory once per block when it
+//   fits beside the tile buffer (41 KB at Venice with CP = 6), else each
+//   thread gathers it through L1/L2.  Both are one kernel, chosen by size;
+//   the device limits and the occupancy behind the grid are read once, not
+//   on every launch.  chip_smoke.py times both branches where x fits.
+// - hcp_w reads b_cam, plus cam_pt (each camera-ordered observation's
+//   point) and w3 [3, P] gathered from L2.  Chunks of at most 1024
+//   observations never cross a camera (chunk_off); one block reduces a
+//   chunk to CP partial sums, and a second pass adds each camera's chunk
+//   partials in chunk order (chunk_ptr).  That is ~200 blocks at the
+//   50-camera headline and ~5k at Venice, where one block per camera gave
+//   50 and 1712.
+// - precond_diag (K_H, the first design, not yet redesigned) reads b_rows
+//   through cam_perm, one 4-byte element per 32-byte sector, one block per
+//   camera.
+// No float atomics: every output is the same bit for bit on every run.
 //
-// Bound on the H100 SXM (3.35 TB/s): all three stream b_rows once, 3*CP*4 B
-// an observation in f32 (2 B in bf16), plus ~8 B of indices; at the Venice
-// scale (M ~ 5M, pose, f32) ~0.4 GB, ~0.12 ms each.  The camera-major pair
-// reads b_rows through cam_perm, one 4-byte element per 32-byte sector, so
-// it moves up to 8x the bytes it uses; the point-major hcpT_x reads columns
-// a track length apart within a warp.  Both are the simple first design;
-// measured times are in PERF.md.
+// Bound on the H100 SXM (3.35 TB/s): each product streams one copy of the
+// rows once, 3*CP*4 B an observation in f32 (2 B in bf16), plus 4 B of
+// indices; at the Venice scale (M ~ 5M, pose, f32) ~0.4 GB, ~0.12 ms.  The
+// rows are loaded with the streaming hint (evict first) so that x and w3
+// stay in L2.  The second copy costs K_E one more coalesced store of the
+// rows and the device 3*CP*4*M bytes more (360 MB at Venice in f32, 180 MB
+// in bf16).
 //
 // C entries, called through ctypes: they launch on the given stream,
-// allocate nothing, do not synchronize, and return cudaGetLastError().
+// allocate nothing, do not synchronize, and return the first CUDA error.
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "common.cuh"
 
 namespace pysfm {
 
-template <int CP, typename TR>
+// u's three partial sums of observation m.  x is read from shared memory
+// (STAGE_X) or gathered from global memory through the read-only path.
+template <int CP, typename TR, bool STAGE_X>
+__device__ __forceinline__ void obs_partial(const TR* __restrict__ b, size_t Ms, int m,
+                                            const float* xsrc, int C,
+                                            const int32_t* __restrict__ obs_cam,
+                                            float (&q)[3]) {
+  const int c = __ldg(obs_cam + m);
+  float xv[CP];
+#pragma unroll
+  for (int d = 0; d < CP; ++d) xv[d] = STAGE_X ? xsrc[d * C + c] : __ldg(xsrc + d * C + c);
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    float acc = row_load_stream(b + (s * CP) * Ms + m) * xv[0];
+#pragma unroll
+    for (int d = 1; d < CP; ++d) acc += row_load_stream(b + (s * CP + d) * Ms + m) * xv[d];
+    q[s] = acc;
+  }
+}
+
+template <int CP, typename TR, bool STAGE_X>
 __global__ void __launch_bounds__(kBlock)
-hcpT_x_kernel(const TR* __restrict__ b,          // [3*CP, M]
-              const float* __restrict__ x,       // [CP, C]
+hcpT_x_kernel(const TR* __restrict__ b,              // b_rows [3*CP, M]
+              const float* __restrict__ x,           // [CP, C]
               int C,
               const int32_t* __restrict__ obs_cam,
-              const int32_t* __restrict__ pt_ptr,
-              int P, int M,
-              float* __restrict__ u) {           // [3, P]
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= P) return;
+              const int32_t* __restrict__ pt_ptr,    // [P+1]
+              int P,
+              const int32_t* __restrict__ tile_pt,   // [n_tiles+1]
+              int n_tiles, int tile_obs, int M,
+              float* __restrict__ u) {               // [3, P]
+  extern __shared__ float dyn[];                     // q [3, tile_obs], then x [CP, C]
+  __shared__ float red[kBlock / 32 * 3];
+  float* q = dyn;
   const size_t Ms = static_cast<size_t>(M);
   const size_t Ps = static_cast<size_t>(P);
-  float acc[3] = {0.f, 0.f, 0.f};
-  const int m1 = __ldg(pt_ptr + p + 1);
-  for (int m = __ldg(pt_ptr + p); m < m1; ++m) {
-    const int c = __ldg(obs_cam + m);
-    float xs[CP];
-#pragma unroll
-    for (int d = 0; d < CP; ++d) xs[d] = __ldg(x + d * C + c);
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      float q = row_load(b + (s * CP) * Ms + m) * xs[0];
-#pragma unroll
-      for (int d = 1; d < CP; ++d) q += row_load(b + (s * CP + d) * Ms + m) * xs[d];
-      acc[s] += q;
-    }
+  const float* xsrc = x;
+  if (STAGE_X) {
+    float* xs = dyn + 3 * tile_obs;
+    for (int i = threadIdx.x; i < CP * C; i += kBlock) xs[i] = __ldg(x + i);
+    __syncthreads();
+    xsrc = xs;
   }
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int p0 = __ldg(tile_pt + t);
+    const int p1 = __ldg(tile_pt + t + 1);
+    const int lo = __ldg(pt_ptr + p0);
+    const int hi = __ldg(pt_ptr + p1);
+    if (p1 - p0 == 1) {
+      // One point: strided per-thread sums, then a block-wide sum.
+      float acc[3] = {0.f, 0.f, 0.f};
+      for (int m = lo + threadIdx.x; m < hi; m += kBlock) {
+        float qm[3];
+        obs_partial<CP, TR, STAGE_X>(b, Ms, m, xsrc, C, obs_cam, qm);
 #pragma unroll
-  for (int s = 0; s < 3; ++s) u[s * Ps + p] = acc[s];
+        for (int s = 0; s < 3; ++s) acc[s] += qm[s];
+      }
+      const float total = block_sum<3>(acc, red);
+      if (threadIdx.x < 3) u[threadIdx.x * Ps + p0] = total;
+    } else {
+      // Whole points, hi - lo <= tile_obs: park, then one thread a point.
+      for (int m = lo + threadIdx.x; m < hi; m += kBlock) {
+        float qm[3];
+        obs_partial<CP, TR, STAGE_X>(b, Ms, m, xsrc, C, obs_cam, qm);
+#pragma unroll
+        for (int s = 0; s < 3; ++s) q[s * tile_obs + (m - lo)] = qm[s];
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < p1 - p0; i += kBlock) {
+        const int a = __ldg(pt_ptr + p0 + i) - lo;
+        const int e = __ldg(pt_ptr + p0 + i + 1) - lo;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+        for (int k = a; k < e; ++k) {
+          s0 += q[k];
+          s1 += q[tile_obs + k];
+          s2 += q[2 * tile_obs + k];
+        }
+        u[p0 + i] = s0;
+        u[Ps + p0 + i] = s1;
+        u[2 * Ps + p0 + i] = s2;
+      }
+    }
+    __syncthreads();  // q and red are reused by the block's next tile
+  }
 }
 
 template <int CP, typename TR>
 __global__ void __launch_bounds__(kBlock)
-hcp_w_kernel(const TR* __restrict__ b,           // [3*CP, M]
-             const float* __restrict__ w3,       // [3, P]
-             int P,
-             const int32_t* __restrict__ obs_pt,
-             const int32_t* __restrict__ cam_ptr,
-             const int32_t* __restrict__ cam_perm,
-             int C, int M,
-             float* __restrict__ y) {            // [CP, C]
+hcp_w_chunk_kernel(const TR* __restrict__ b,               // b_cam [3*CP, M]
+                   const float* __restrict__ w3,           // [3, P]
+                   int P,
+                   const int32_t* __restrict__ cam_pt,     // [M]
+                   const int32_t* __restrict__ chunk_off,  // [n_chunks+1]
+                   int n_chunks, int M,
+                   float* __restrict__ partial) {          // [CP, n_chunks]
   __shared__ float smem[kBlock / 32 * CP];
-  const int c = blockIdx.x;
+  const int i = blockIdx.x;
   const size_t Ms = static_cast<size_t>(M);
   const size_t Ps = static_cast<size_t>(P);
   float acc[CP];
 #pragma unroll
   for (int d = 0; d < CP; ++d) acc[d] = 0.f;
-  const int j1 = __ldg(cam_ptr + c + 1);
-  for (int j = __ldg(cam_ptr + c) + threadIdx.x; j < j1; j += kBlock) {
-    const int m = __ldg(cam_perm + j);
-    const int p = __ldg(obs_pt + m);
+  const int j1 = __ldg(chunk_off + i + 1);
+#pragma unroll 4
+  for (int j = __ldg(chunk_off + i) + threadIdx.x; j < j1; j += kBlock) {
+    const int p = __ldg(cam_pt + j);
     const float w0 = __ldg(w3 + p), w1 = __ldg(w3 + Ps + p), w2 = __ldg(w3 + 2 * Ps + p);
 #pragma unroll
     for (int d = 0; d < CP; ++d) {
-      acc[d] += row_load(b + d * Ms + m) * w0 + row_load(b + (CP + d) * Ms + m) * w1 +
-                row_load(b + (2 * CP + d) * Ms + m) * w2;
+      acc[d] += row_load_stream(b + d * Ms + j) * w0 +
+                row_load_stream(b + (CP + d) * Ms + j) * w1 +
+                row_load_stream(b + (2 * CP + d) * Ms + j) * w2;
     }
   }
   const float total = block_sum<CP>(acc, smem);
-  if (threadIdx.x < CP) y[threadIdx.x * static_cast<size_t>(C) + c] = total;
+  if (threadIdx.x < CP) partial[threadIdx.x * static_cast<size_t>(n_chunks) + i] = total;
+}
+
+// y[d, c] = the sum of camera c's chunk partials of row d, in chunk order
+// (0 for a camera without observations).
+__global__ void __launch_bounds__(kBlock)
+hcp_w_combine_kernel(const float* __restrict__ partial,    // [CP, n_chunks]
+                     int n_chunks,
+                     const int32_t* __restrict__ chunk_ptr,  // [C+1]
+                     int C, int cp,
+                     float* __restrict__ y) {                // [CP, C]
+  const int idx = blockIdx.x * kBlock + threadIdx.x;
+  if (idx >= cp * C) return;
+  const int d = idx / C;
+  const int c = idx - d * C;
+  const float* row = partial + d * static_cast<size_t>(n_chunks);
+  float s = 0.f;
+  const int i1 = __ldg(chunk_ptr + c + 1);
+  for (int i = __ldg(chunk_ptr + c); i < i1; ++i) s += row[i];
+  y[idx] = s;
 }
 
 template <int CP, typename TR>
@@ -155,68 +254,208 @@ precond_diag_kernel(const TR* __restrict__ b,    // [3*CP, M]
   }
 }
 
-struct SpmvArgs {
+struct HcptArgs {
   const void* b;
-  const float* vec;         // x [CP, C], w3 [3, P] or hinv6 [6, P]
-  const int32_t* obs_idx;   // obs_cam (hcpT_x) or obs_pt
-  const int32_t* ptr;       // pt_ptr (hcpT_x) or cam_ptr
-  const int32_t* cam_perm;
-  int C, P, M;
-  float* out;
+  const float* x;
+  int C;
+  const int32_t* obs_cam;
+  const int32_t* pt_ptr;
+  int P;
+  const int32_t* tile_pt;
+  int n_tiles, tile_obs, M;
+  int x_mode;  // 1: x in shared memory, 0: x from global memory, -1: by size
+  float* u;
 };
 
-enum Op : int { OP_HCPT_X = 0, OP_HCP_W = 1, OP_PRECOND_DIAG = 2 };
-
-template <int CP, typename TR>
-void launch_op(int op, const SpmvArgs& a, cudaStream_t s) {
-  const TR* b = static_cast<const TR*>(a.b);
-  switch (op) {
-    case OP_HCPT_X:
-      hcpT_x_kernel<CP, TR><<<(a.P + kBlock - 1) / kBlock, kBlock, 0, s>>>(
-          b, a.vec, a.C, a.obs_idx, a.ptr, a.P, a.M, a.out);
-      break;
-    case OP_HCP_W:
-      hcp_w_kernel<CP, TR><<<a.C, kBlock, 0, s>>>(
-          b, a.vec, a.P, a.obs_idx, a.ptr, a.cam_perm, a.C, a.M, a.out);
-      break;
-    default:
-      precond_diag_kernel<CP, TR><<<a.C, kBlock, 0, s>>>(
-          b, a.vec, a.P, a.obs_idx, a.ptr, a.cam_perm, a.C, a.M, a.out);
-      break;
+// The device's SM count and opt-in shared memory per block, read once per
+// device: the CG loop launches hcpT_x once per iteration, from the host.
+cudaError_t device_limits(int dev, int& sms, int& optin) {
+  static std::mutex mu;
+  static std::map<int, std::pair<int, int>> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(dev);
+  if (it == cache.end()) {
+    int s = 0, o = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err != cudaSuccess) return err;
+    it = cache.emplace(dev, std::make_pair(s, o)).first;
   }
+  sms = it->second.first;
+  optin = it->second.second;
+  return cudaSuccess;
 }
 
-template <int CP>
-void launch_rows(int op, int rows_bf16, const SpmvArgs& a, cudaStream_t s) {
-  if (rows_bf16) {
-    launch_op<CP, __nv_bfloat16>(op, a, s);
-  } else {
-    launch_op<CP, float>(op, a, s);
+// Persistent grid: as many blocks as fit on the card at this shared-memory
+// size, at most one per tile.  The kernel's shared-memory attribute only
+// grows, and its occupancy is read once per (device, size).
+template <int CP, typename TR, bool STAGE_X>
+cudaError_t launch_hcpT_x(const HcptArgs& a, int dev, size_t smem, int sms, cudaStream_t s) {
+  auto kernel = hcpT_x_kernel<CP, TR, STAGE_X>;
+  static std::mutex mu;
+  static std::map<int, size_t> allowed;                   // device -> attribute
+  static std::map<std::pair<int, size_t>, int> per_sm;    // (device, smem) -> blocks
+  int resident = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_pair(dev, smem);
+    auto it = per_sm.find(key);
+    if (it == per_sm.end()) {
+      cudaError_t err = cudaSuccess;
+      if (allowed[dev] < smem) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+        allowed[dev] = smem;
+      }
+      int n = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kBlock, smem);
+      if (err != cudaSuccess) return err;
+      it = per_sm.emplace(key, n > 0 ? n : 1).first;
+    }
+    resident = it->second * sms;
+  }
+  const int grid = a.n_tiles < resident ? a.n_tiles : resident;
+  kernel<<<grid, kBlock, smem, s>>>(static_cast<const TR*>(a.b), a.x, a.C, a.obs_cam,
+                                    a.pt_ptr, a.P, a.tile_pt, a.n_tiles, a.tile_obs,
+                                    a.M, a.u);
+  return cudaGetLastError();
+}
+
+// x in shared memory when the tile buffer, x and the reduction scratch fit
+// in one block's opt-in shared memory (x_mode -1); x_mode 1 asks for it
+// (cudaErrorInvalidValue when it does not fit), 0 gathers x from global
+// memory.
+template <int CP, typename TR>
+struct HcptX {
+  static cudaError_t run(const HcptArgs& a, cudaStream_t s) {
+    const int x_mode = a.x_mode;
+    int dev = 0, sms = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = device_limits(dev, sms, optin);
+    if (err != cudaSuccess) return err;
+    const size_t q_bytes = sizeof(float) * 3 * static_cast<size_t>(a.tile_obs);
+    const size_t x_bytes = sizeof(float) * CP * static_cast<size_t>(a.C);
+    const bool fits = q_bytes + x_bytes + sizeof(float) * (kBlock / 32 * 3) <=
+                      static_cast<size_t>(optin);
+    if (x_mode == 1 && !fits) return cudaErrorInvalidValue;
+    if (x_mode == 1 || (x_mode == -1 && fits)) {
+      return launch_hcpT_x<CP, TR, true>(a, dev, q_bytes + x_bytes, sms, s);
+    }
+    return launch_hcpT_x<CP, TR, false>(a, dev, q_bytes, sms, s);
+  }
+};
+
+struct HcpwArgs {
+  const void* b;
+  const float* w3;
+  int P;
+  const int32_t* cam_pt;
+  const int32_t* chunk_off;
+  int n_chunks;
+  const int32_t* chunk_ptr;
+  int C, M;
+  float* partial;
+  float* y;
+};
+
+template <int CP, typename TR>
+struct HcpW {
+  static cudaError_t run(const HcpwArgs& a, cudaStream_t s) {
+    hcp_w_chunk_kernel<CP, TR><<<a.n_chunks, kBlock, 0, s>>>(
+        static_cast<const TR*>(a.b), a.w3, a.P, a.cam_pt, a.chunk_off, a.n_chunks,
+        a.M, a.partial);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    hcp_w_combine_kernel<<<(CP * a.C + kBlock - 1) / kBlock, kBlock, 0, s>>>(
+        a.partial, a.n_chunks, a.chunk_ptr, a.C, CP, a.y);
+    return cudaGetLastError();
+  }
+};
+
+struct PrecondArgs {
+  const void* b;
+  const float* hinv6;
+  int P;
+  const int32_t* obs_pt;
+  const int32_t* cam_ptr;
+  const int32_t* cam_perm;
+  int C, M;
+  float* D;
+};
+
+template <int CP, typename TR>
+struct PrecondDiag {
+  static cudaError_t run(const PrecondArgs& a, cudaStream_t s) {
+    precond_diag_kernel<CP, TR><<<a.C, kBlock, 0, s>>>(
+        static_cast<const TR*>(a.b), a.hinv6, a.P, a.obs_pt, a.cam_ptr, a.cam_perm,
+        a.C, a.M, a.D);
+    return cudaGetLastError();
+  }
+};
+
+// Op<CP, row type>::run for the camera dof and row storage type given.
+template <template <int, typename> class Op, typename Args>
+cudaError_t dispatch(int cp, int rows_bf16, const Args& a, cudaStream_t s) {
+  switch (cp) {
+    case 6:
+      return rows_bf16 ? Op<6, __nv_bfloat16>::run(a, s) : Op<6, float>::run(a, s);
+    case 9:
+      return rows_bf16 ? Op<9, __nv_bfloat16>::run(a, s) : Op<9, float>::run(a, s);
+    case 10:
+      return rows_bf16 ? Op<10, __nv_bfloat16>::run(a, s) : Op<10, float>::run(a, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace pysfm
 
-// op: 0 hcpT_x (vec = x [CP, C], obs_idx = obs_cam, ptr = pt_ptr),
-//     1 hcp_w (vec = w3 [3, P], obs_idx = obs_pt, ptr = cam_ptr, cam_perm),
-//     2 precond_diag (vec = hinv6 [6, P], as hcp_w).
-extern "C" cudaError_t pysfm_spmv(int op, int cp, int rows_bf16, const void* b,
-                                  const void* vec, const void* obs_idx,
-                                  const void* ptr, const void* cam_perm, int C,
-                                  int P, int M, void* out, void* stream) {
+extern "C" cudaError_t pysfm_hcpT_x(int cp, int rows_bf16, const void* b_rows,
+                                    const void* x, int C, const void* obs_cam,
+                                    const void* pt_ptr, int P, const void* tile_pt,
+                                    int n_tiles, int tile_obs, int M, int x_mode, void* u,
+                                    void* stream) {
   using namespace pysfm;
-  if (M <= 0 || P <= 0 || C <= 0 || op < 0 || op > 2) return cudaErrorInvalidValue;
-  const SpmvArgs a{b, static_cast<const float*>(vec),
-                   static_cast<const int32_t*>(obs_idx),
-                   static_cast<const int32_t*>(ptr),
-                   static_cast<const int32_t*>(cam_perm), C, P, M,
-                   static_cast<float*>(out)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cp) {
-    case 6:  launch_rows<6>(op, rows_bf16, a, s); break;
-    case 9:  launch_rows<9>(op, rows_bf16, a, s); break;
-    case 10: launch_rows<10>(op, rows_bf16, a, s); break;
-    default: return cudaErrorInvalidValue;
+  if (M <= 0 || P <= 0 || C <= 0 || n_tiles <= 0 || tile_obs <= 0 || x_mode < -1 ||
+      x_mode > 1) {
+    return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+  const HcptArgs a{b_rows, static_cast<const float*>(x), C,
+                   static_cast<const int32_t*>(obs_cam),
+                   static_cast<const int32_t*>(pt_ptr), P,
+                   static_cast<const int32_t*>(tile_pt), n_tiles, tile_obs, M, x_mode,
+                   static_cast<float*>(u)};
+  return dispatch<HcptX>(cp, rows_bf16, a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t pysfm_hcp_w(int cp, int rows_bf16, const void* b_cam,
+                                   const void* w3, int P, const void* cam_pt,
+                                   const void* chunk_off, int n_chunks,
+                                   const void* chunk_ptr, int C, int M,
+                                   void* partial, void* y, void* stream) {
+  using namespace pysfm;
+  if (M <= 0 || P <= 0 || C <= 0 || n_chunks <= 0) return cudaErrorInvalidValue;
+  const HcpwArgs a{b_cam, static_cast<const float*>(w3), P,
+                   static_cast<const int32_t*>(cam_pt),
+                   static_cast<const int32_t*>(chunk_off), n_chunks,
+                   static_cast<const int32_t*>(chunk_ptr), C, M,
+                   static_cast<float*>(partial), static_cast<float*>(y)};
+  return dispatch<HcpW>(cp, rows_bf16, a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t pysfm_precond_diag(int cp, int rows_bf16, const void* b_rows,
+                                          const void* hinv6, int P, const void* obs_pt,
+                                          const void* cam_ptr, const void* cam_perm,
+                                          int C, int M, void* D, void* stream) {
+  using namespace pysfm;
+  if (M <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const PrecondArgs a{b_rows, static_cast<const float*>(hinv6), P,
+                      static_cast<const int32_t*>(obs_pt),
+                      static_cast<const int32_t*>(cam_ptr),
+                      static_cast<const int32_t*>(cam_perm), C, M,
+                      static_cast<float*>(D)};
+  return dispatch<PrecondDiag>(cp, rows_bf16, a, static_cast<cudaStream_t>(stream));
 }

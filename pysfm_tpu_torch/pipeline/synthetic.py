@@ -264,3 +264,57 @@ def make_scene(
     return SyntheticScene(
         truth=truth, problem=problem, noise_px=noise_px, outlier_frac=outlier_frac
     )
+
+
+PLAN_EDGES = ("random", "empty_and_long_cameras", "point_seen_by_every_camera",
+              "x_too_large_for_shared_memory")
+
+
+def plan_edge_incidence(kind: str, seed: int = 7):
+    """A visibility pattern ``(obs_cam, obs_pt, C, P)`` (int32, sorted by
+    point) at one edge of the plans of the CG products
+    (``solver/kernels/spmv.py``), one of :data:`PLAN_EDGES`:
+
+    - ``random``: 7 cameras, 60 points, 2-4 cameras a point;
+    - ``empty_and_long_cameras``: cameras 0 and 1 see every point (more than
+      one ``hcp_w`` chunk each), camera 3 every tenth, cameras 2 and 4
+      nothing;
+    - ``point_seen_by_every_camera``: point 7 is seen by all cameras (longer
+      than one ``hcpT_x`` tile), point 8 by 700 (longer than half a tile,
+      alone in its tile), point 9 by none;
+    - ``x_too_large_for_shared_memory``: 6000 cameras, so that ``x [CP, C]``
+      (240 KB at CP = 10) does not fit in one block's shared memory on an
+      H100 (227 KB); 5000 points, 2-5 cameras each.
+    """
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    if kind == "random":
+        C, P = 7, 60
+        for p in range(P):
+            pairs += [(c, p) for c in rng.choice(C, size=2 + rng.integers(3), replace=False)]
+    elif kind == "empty_and_long_cameras":
+        C, P = 5, spmv.HCP_W_CHUNK + 476
+        for p in range(P):
+            pairs += [(0, p), (1, p)] + ([(3, p)] if p % 10 == 0 else [])
+    elif kind == "point_seen_by_every_camera":
+        C, P = spmv.HCPT_X_TILE + 276, 40
+        for p in range(P):
+            if p == 7:
+                cams = np.arange(C)
+            elif p == 8:
+                cams = np.sort(rng.choice(C, size=700, replace=False))
+            elif p == 9:
+                cams = []
+            else:
+                cams = rng.choice(C, size=2 + rng.integers(3), replace=False)
+            pairs += [(c, p) for c in cams]
+    elif kind == "x_too_large_for_shared_memory":
+        C, P = 6000, 5000
+        for p in range(P):
+            pairs += [(c, p) for c in rng.choice(C, size=2 + rng.integers(4), replace=False)]
+    else:
+        raise ValueError(f"kind={kind!r}: one of {PLAN_EDGES}")
+    obs_cam, obs_pt = np.asarray(pairs, np.int64).T
+    return obs_cam.astype(np.int32), obs_pt.astype(np.int32), C, P

@@ -44,11 +44,11 @@ _SIGNATURES = {
     ),
     # cudaError_t pysfm_build_eqs(model, robust, rows_bf16, ctab, C, X3, P,
     #     obs_cam, obs_pt, u, v, w, pt_ptr, cam_ptr, cam_perm, scale, M,
-    #     b_rows, Hcc, g_c, hpp6, g_p, stream)
+    #     b_rows, b_cam, Hcc, g_c, hpp6, g_p, stream)
     "pysfm_build_eqs": (
         ctypes.c_int,
         [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 9
-        + [ctypes.c_int] + [_P] * 6,
+        + [ctypes.c_int] + [_P] * 7,
     ),
     # cudaError_t pysfm_payload_b(model, robust, rows_bf16, ctab, C, X3, P,
     #     obs_cam, obs_pt, u, v, w, scale, M, b_rows, stream)
@@ -64,11 +64,26 @@ _SIGNATURES = {
         [ctypes.c_int] * 2 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
         + [ctypes.c_int, _P, ctypes.c_int, _P, _P],
     ),
-    # cudaError_t pysfm_spmv(op, cp, rows_bf16, b, vec, obs_idx, ptr,
-    #     cam_perm, C, P, M, out, stream)
-    "pysfm_spmv": (
+    # cudaError_t pysfm_hcpT_x(cp, rows_bf16, b_rows, x, C, obs_cam, pt_ptr,
+    #     P, tile_pt, n_tiles, tile_obs, M, x_mode, u, stream)
+    "pysfm_hcpT_x": (
         ctypes.c_int,
-        [ctypes.c_int] * 3 + [_P] * 5 + [ctypes.c_int] * 3 + [_P] * 2,
+        [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_int] + [_P] * 2 + [ctypes.c_int, _P]
+        + [ctypes.c_int] * 4 + [_P] * 2,
+    ),
+    # cudaError_t pysfm_hcp_w(cp, rows_bf16, b_cam, w3, P, cam_pt, chunk_off,
+    #     n_chunks, chunk_ptr, C, M, partial, y, stream)
+    "pysfm_hcp_w": (
+        ctypes.c_int,
+        [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_int] + [_P] * 2 + [ctypes.c_int, _P]
+        + [ctypes.c_int] * 2 + [_P] * 3,
+    ),
+    # cudaError_t pysfm_precond_diag(cp, rows_bf16, b_rows, hinv6, P, obs_pt,
+    #     cam_ptr, cam_perm, C, M, D, stream)
+    "pysfm_precond_diag": (
+        ctypes.c_int,
+        [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_int] + [_P] * 3 + [ctypes.c_int] * 2
+        + [_P] * 2,
     ),
 }
 

@@ -5,20 +5,31 @@ its plain PyTorch version.
 
 Counterpart of ``pysfm_tpu/solver/kernels/pallas_spmv.py``.  The JAX
 package re-sorts the observations into a grouped stream
-(``problem/grouped.py``) because Mosaic's one fast gather is local to an
-(8, 128) register; on Hopper a thread gathers from L2 freely, so
-:class:`GroupedOps` here is CSR over the CMProblem's own point-sorted order:
+(``problem/grouped.py``, ``permute_b_rows``) because Mosaic's one fast
+gather is local to an (8, 128) register.  Here :class:`GroupedOps` is CSR
+over the CMProblem's own point-sorted order, with a second, camera-sorted
+copy of the rows, so that each CG product streams its rows in order:
 
 - ``pt_ptr [P+1]``: each point's observations are ``pt_ptr[p]:pt_ptr[p+1]``;
 - ``cam_perm [M]`` / ``cam_ptr [C+1]``: observation ids stably sorted by
-  camera, and each camera's range of them;
+  camera, and each camera's range of them; ``cam_pt = obs_pt[cam_perm]``;
 - ``b_rows [3*CP, M]``: the per-iteration coupling rows, row ``s*CP + d``,
-  in the point-sorted order (exactly ``B_cm``), stored in ``rows_dtype``.
+  point-sorted (exactly ``B_cm``), stored in ``rows_dtype``; ``hcpT_x`` and
+  K_H read it;
+- ``b_cam [3*CP, M]``: the same rows camera-sorted, ``b_cam[:, j] ==
+  b_rows[:, cam_perm[j]]`` bit for bit, stored by K_E's camera pass where it
+  computes them; ``hcp_w`` reads it.  It costs ``3*CP*M`` more elements:
+  360 MB at Venice (M ~ 5M, CP = 6) in f32, 180 MB in bf16;
+- the static plans of the two products: ``chunk_off`` / ``chunk_ptr`` cut
+  each camera's range into chunks of at most :data:`HCP_W_CHUNK`
+  observations (one ``hcp_w`` block each, then a fixed-order sum per
+  camera); ``tile_pt`` cuts the point-sorted stream into tiles of whole
+  points, at most :data:`HCPT_X_TILE` observations each, a point whose
+  track is longer than half a tile alone (one ``hcpT_x`` block each).
 
 The superstep (two-phase) TPU kernels K_A2 / K_B2 compute what K_A / K_B
 compute; one kernel here replaces each pair.  Every sum has a fixed order
-(a thread per point, or a block per camera with a fixed-shape reduction;
-no float atomics), so the kernels are bitwise repeatable.
+(no float atomics), so the kernels are bitwise repeatable.
 
 Dispatch is by device, nothing else: for CPU tensors every wrapper runs its
 plain version (sums with ``index_add_``, deterministic on the CPU); for CUDA
@@ -29,7 +40,7 @@ raises.  :data:`LAUNCHES` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -43,7 +54,10 @@ from pysfm_tpu_torch.solver.kernels.proj import _MODEL_ID, _ROBUST_ID, _check
 KERNELS = ("build_eqs", "cost", "hcpT_x", "hcp_w", "precond_diag", "payload_b")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
-_OP_ID = {"hcpT_x": 0, "hcp_w": 1, "precond_diag": 2}
+# Observations of one hcp_w chunk (never across a camera), and of one
+# hcpT_x tile (whole points; a point with more than half of it is alone).
+HCP_W_CHUNK = 1024
+HCPT_X_TILE = 1024
 # Blocks of the cost kernel's first pass (grid-stride over observations).
 _COST_MAX_BLOCKS = 1024
 _BLOCK = 256
@@ -51,19 +65,25 @@ _BLOCK = 256
 
 @dataclasses.dataclass(frozen=True)
 class GroupedOps:
-    """Static CSR layout of one problem's observations, plus the coupling
-    rows of the current linearization (``b_rows``, None until built)."""
+    """Static CSR layout of one problem's observations and the plans of the
+    two CG products, plus the coupling rows of the current linearization
+    in both orders (``b_rows``, ``b_cam``; None until built)."""
 
     obs_cam: torch.Tensor    # [M] int32
     obs_pt: torch.Tensor     # [M] int32, sorted
     pt_ptr: torch.Tensor     # [P+1] int32
     cam_ptr: torch.Tensor    # [C+1] int32
     cam_perm: torch.Tensor   # [M] int32
+    cam_pt: torch.Tensor     # [M] int32, obs_pt[cam_perm]
+    chunk_off: torch.Tensor  # [n_chunks+1] int32, hcp_w's chunks of cam order
+    chunk_ptr: torch.Tensor  # [C+1] int32, each camera's range of chunks
+    tile_pt: torch.Tensor    # [n_tiles+1] int32, first point of each hcpT_x tile
     u: torch.Tensor          # [M] measured pixel u
     v: torch.Tensor          # [M] measured pixel v
     w: torch.Tensor          # [M] confidence weight
     rows_dtype: torch.dtype
-    b_rows: Optional[torch.Tensor] = None   # [3*CP, M] in rows_dtype
+    b_rows: Optional[torch.Tensor] = None   # [3*CP, M] in rows_dtype, point-sorted
+    b_cam: Optional[torch.Tensor] = None    # [3*CP, M] in rows_dtype, camera-sorted
 
     @property
     def n_cameras(self) -> int:
@@ -78,6 +98,11 @@ class GroupedOps:
         return self.obs_cam.shape[0]
 
     def replace(self, **changes) -> "GroupedOps":
+        """A copy with ``changes``.  New ``b_rows`` without ``b_cam`` drop the
+        old ``b_cam``, which belongs to another linearization: the ``hcp_w``
+        kernel then raises instead of reading stale rows."""
+        if "b_rows" in changes and "b_cam" not in changes:
+            changes["b_cam"] = None
         return dataclasses.replace(self, **changes)
 
 
@@ -88,20 +113,60 @@ def _offsets(ids: torch.Tensor, n: int) -> torch.Tensor:
     return ptr.to(torch.int32)
 
 
+def _chunk_plan(cam_ptr: torch.Tensor, chunk: int):
+    """hcp_w's chunks: each camera's range of the camera-sorted observations
+    cut into pieces of at most ``chunk``.  Returns ``chunk_off
+    [n_chunks+1]`` (chunk i is ``chunk_off[i]:chunk_off[i+1]``) and
+    ``chunk_ptr [C+1]`` (camera c owns chunks ``chunk_ptr[c]:chunk_ptr[c+1]``,
+    none if it has no observations)."""
+    ptr = cam_ptr.long()
+    per_cam = (ptr[1:] - ptr[:-1] + chunk - 1) // chunk
+    chunk_ptr = torch.zeros_like(ptr)
+    chunk_ptr[1:] = torch.cumsum(per_cam, 0)
+    cam = torch.repeat_interleave(torch.arange(per_cam.shape[0], device=ptr.device), per_cam)
+    k = torch.arange(cam.shape[0], device=ptr.device) - chunk_ptr[cam]
+    chunk_off = torch.cat([ptr[cam] + k * chunk, ptr[-1:]])
+    return chunk_off.to(torch.int32), chunk_ptr.to(torch.int32)
+
+
+def _tile_plan(pt_ptr: torch.Tensor, tile: int) -> torch.Tensor:
+    """hcpT_x's tiles of the point-sorted stream, as the first point of each
+    and ``P`` at the end: a new tile starts where a point's first
+    observation enters the next window of ``tile // 2``, and around every
+    point whose track is longer than that window, which is alone.  A tile of
+    several points therefore spans at most ``tile`` observations."""
+    half = tile // 2
+    ptr = pt_ptr.long()
+    start = ptr[:-1]
+    lone = ptr[1:] - start > half
+    win = start // half
+    new = torch.ones_like(lone)
+    new[1:] = (win[1:] != win[:-1]) | lone[1:] | lone[:-1]
+    first = torch.nonzero(new).flatten()
+    return torch.cat([first, ptr.new_tensor([start.shape[0]])]).to(torch.int32)
+
+
 def grouped_ops(obs_cam, obs_pt, n_cameras: int, n_points: int, u, v, w,
                 rows_dtype) -> GroupedOps:
-    """Build the CSR layout on the device of ``obs_cam``.  The observations
-    must be sorted by point, as a CMProblem's are."""
+    """Build the CSR layout and the products' plans on the device of
+    ``obs_cam``.  The observations must be sorted by point, as a
+    CMProblem's are."""
     M = obs_cam.shape[0]
     if M > 2**31 - _BLOCK:
         raise ValueError(f"M={M} overflows the kernels' int32 observation index")
     if M > 1 and bool((obs_pt[1:] < obs_pt[:-1]).any()):
         raise ValueError("observations must be sorted by point")
+    obs_pt = obs_pt.to(torch.int32)
     cam_perm = torch.sort(obs_cam, stable=True).indices.to(torch.int32)
+    cam_ptr = _offsets(obs_cam, n_cameras)
+    pt_ptr = _offsets(obs_pt, n_points)
+    chunk_off, chunk_ptr = _chunk_plan(cam_ptr, HCP_W_CHUNK)
     return GroupedOps(
-        obs_cam=obs_cam.to(torch.int32), obs_pt=obs_pt.to(torch.int32),
-        pt_ptr=_offsets(obs_pt, n_points), cam_ptr=_offsets(obs_cam, n_cameras),
-        cam_perm=cam_perm, u=u, v=v, w=w, rows_dtype=rows_dtype,
+        obs_cam=obs_cam.to(torch.int32), obs_pt=obs_pt, pt_ptr=pt_ptr,
+        cam_ptr=cam_ptr, cam_perm=cam_perm, cam_pt=obs_pt[cam_perm],
+        chunk_off=chunk_off, chunk_ptr=chunk_ptr,
+        tile_pt=_tile_plan(pt_ptr, HCPT_X_TILE), u=u, v=v, w=w,
+        rows_dtype=rows_dtype,
     )
 
 
@@ -125,18 +190,22 @@ def _check_ops(ops: GroupedOps, dev) -> None:
     M, C, P = ops.n_obs, ops.n_cameras, ops.n_points
     i32, f32 = torch.int32, torch.float32
     for name, shape in (("obs_cam", (M,)), ("obs_pt", (M,)), ("pt_ptr", (P + 1,)),
-                        ("cam_ptr", (C + 1,)), ("cam_perm", (M,))):
+                        ("cam_ptr", (C + 1,)), ("cam_perm", (M,)), ("cam_pt", (M,)),
+                        ("chunk_off", ops.chunk_off.shape), ("chunk_ptr", (C + 1,)),
+                        ("tile_pt", ops.tile_pt.shape)):
         _check(name, getattr(ops, name), i32, shape, dev)
     for name in ("u", "v", "w"):
         _check(name, getattr(ops, name), f32, (M,), dev)
 
 
-def _check_rows(ops: GroupedOps, cp: int, dev) -> Tuple[torch.Tensor, int]:
-    b = _rows(ops)
+def _check_rows(name: str, b: torch.Tensor, cp: int, M: int, dev) -> int:
+    """Check coupling rows for a kernel; returns 1 for bf16 rows, 0 for f32."""
     if b.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"b_rows is {b.dtype}; the CUDA kernels take f32 or bf16 rows")
-    _check("b_rows", b, b.dtype, (3 * cp, ops.n_obs), dev)
-    return b, int(b.dtype == torch.bfloat16)
+        raise TypeError(f"{name} is {b.dtype}; the CUDA kernels take f32 or bf16 rows")
+    if cp not in (6, 9, 10):
+        raise ValueError(f"cp={cp}: the kernels take 6, 9 or 10 camera dof")
+    _check(name, b, b.dtype, (3 * cp, M), dev)
+    return int(b.dtype == torch.bfloat16)
 
 
 def _launched(name: str, err: int) -> None:
@@ -149,6 +218,13 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _lib():
+    """The kernel library, built at first use (never at import)."""
+    from pysfm_tpu_torch.solver.kernels import _build
+
+    return _build.library()
+
+
 # --------------------------------------------------------------------------
 # K_E: normal equations + coupling rows.
 # --------------------------------------------------------------------------
@@ -158,7 +234,7 @@ def build_eqs_plain(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model,
                     robust, n_cameras, n_points):
     """Plain version of :func:`build_eqs`: the per-observation rows of
     ``scale._payload_rows`` reduced per camera and per point with
-    ``index_add_``."""
+    ``index_add_``; the camera-sorted rows are ``B[:, cam_perm]``."""
     B, cam_rows, pt_rows = scale._payload_rows(
         model, robust, robust_scale, ctab, X3, ops.obs_cam, ops.obs_pt,
         ops.u, ops.v, ops.w,
@@ -172,12 +248,11 @@ def build_eqs_plain(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model,
         Hcc=scale._unpack_sym(cred[:n_tri], cp), g_c=cred[n_tri:].T.contiguous(),
         hpp6=pred[:6], g_p=pred[6:], B_cm=None,
     )
-    return eqs, B.to(ops.rows_dtype)
+    b_rows = B.to(ops.rows_dtype)
+    return eqs, b_rows, b_rows[:, ops.cam_perm]
 
 
 def _launch_build_eqs(ops, ctab, X3, robust_scale, cp, model, robust, C, P):
-    from pysfm_tpu_torch.solver.kernels import _build
-
     dev = ctab.device
     f32 = torch.float32
     M = ops.n_obs
@@ -188,22 +263,23 @@ def _launch_build_eqs(ops, ctab, X3, robust_scale, cp, model, robust, C, P):
     if ops.rows_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rows_dtype {ops.rows_dtype}: the kernel stores f32 or bf16 rows")
     b_rows = torch.empty((3 * cp, M), dtype=ops.rows_dtype, device=dev)
+    b_cam = torch.empty_like(b_rows)
     Hcc = torch.empty((C, cp, cp), dtype=f32, device=dev)
     g_c = torch.empty((C, cp), dtype=f32, device=dev)
     hpp6 = torch.empty((6, P), dtype=f32, device=dev)
     g_p = torch.empty((3, P), dtype=f32, device=dev)
-    err = _build.library().pysfm_build_eqs(
+    err = _lib().pysfm_build_eqs(
         _MODEL_ID[model], _ROBUST_ID[robust], int(ops.rows_dtype == torch.bfloat16),
         ctab.data_ptr(), C, X3.data_ptr(), P,
         ops.obs_cam.data_ptr(), ops.obs_pt.data_ptr(), ops.u.data_ptr(),
         ops.v.data_ptr(), ops.w.data_ptr(), ops.pt_ptr.data_ptr(),
         ops.cam_ptr.data_ptr(), ops.cam_perm.data_ptr(), robust_scale.data_ptr(), M,
-        b_rows.data_ptr(), Hcc.data_ptr(), g_c.data_ptr(), hpp6.data_ptr(),
-        g_p.data_ptr(), _stream(dev),
+        b_rows.data_ptr(), b_cam.data_ptr(), Hcc.data_ptr(), g_c.data_ptr(),
+        hpp6.data_ptr(), g_p.data_ptr(), _stream(dev),
     )
     _launched("build_eqs", err)
     eqs = scale.ScaleEqs(Hcc=Hcc, g_c=g_c, hpp6=hpp6, g_p=g_p, B_cm=None)
-    return eqs, b_rows
+    return eqs, b_rows, b_cam
 
 
 def build_eqs(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust,
@@ -211,8 +287,10 @@ def build_eqs(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust,
     """Fused normal-equation build (K_E; JAX ``build_eqs_grouped``):
     residuals, Jacobians and IRLS weights at the parameters in ``ctab``
     (``cm.cam_table``) and ``X3``, reduced to ``ScaleEqs(Hcc, g_c, hpp6,
-    g_p, B_cm=None)``, and the coupling rows ``b_rows [3*CP, M]`` in
-    ``ops.rows_dtype`` for the CG products."""
+    g_p, B_cm=None)``, and the coupling rows for the CG products in
+    ``ops.rows_dtype`` in both orders: ``(eqs, b_rows, b_cam)``, ``b_rows
+    [3*CP, M]`` point-sorted and ``b_cam [3*CP, M]`` camera-sorted
+    (``b_cam[:, j] == b_rows[:, cam_perm[j]]`` bit for bit)."""
     projection._check_model(model)
     robust_mod._check(robust)
     if not _route(X3):
@@ -248,8 +326,6 @@ def payload_b(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust):
     if not _route(X3):
         return payload_b_plain(ops, ctab, X3, robust_scale, cp=cp, model=model,
                                robust=robust)
-    from pysfm_tpu_torch.solver.kernels import _build
-
     dev = X3.device
     f32 = torch.float32
     C, P, M = ctab.shape[1], X3.shape[1], ops.n_obs
@@ -262,7 +338,7 @@ def payload_b(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust):
     if cp != projection.CAM_DOF[model]:
         raise ValueError(f"cp={cp} is not the {model!r} model's {projection.CAM_DOF[model]}")
     b_rows = torch.empty((3 * cp, M), dtype=ops.rows_dtype, device=dev)
-    err = _build.library().pysfm_payload_b(
+    err = _lib().pysfm_payload_b(
         _MODEL_ID[model], _ROBUST_ID[robust], int(ops.rows_dtype == torch.bfloat16),
         ctab.data_ptr(), C, X3.data_ptr(), P, ops.obs_cam.data_ptr(),
         ops.obs_pt.data_ptr(), ops.u.data_ptr(), ops.v.data_ptr(), ops.w.data_ptr(),
@@ -298,8 +374,6 @@ def cost(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
     robust_mod._check(robust)
     if not _route(X3):
         return cost_plain(ops, ctab, X3, robust_scale, model=model, robust=robust)
-    from pysfm_tpu_torch.solver.kernels import _build
-
     dev = X3.device
     f32 = torch.float32
     C, P, M = ctab.shape[1], X3.shape[1], ops.n_obs
@@ -310,7 +384,7 @@ def cost(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
     n_blocks = cost_blocks(M)
     partial = torch.empty((n_blocks,), dtype=torch.float64, device=dev)
     out = torch.empty((), dtype=f32, device=dev)
-    err = _build.library().pysfm_cost(
+    err = _lib().pysfm_cost(
         _MODEL_ID[model], _ROBUST_ID[robust], ctab.data_ptr(), C, X3.data_ptr(), P,
         ops.obs_cam.data_ptr(), ops.obs_pt.data_ptr(), ops.u.data_ptr(),
         ops.v.data_ptr(), ops.w.data_ptr(), robust_scale.data_ptr(), M,
@@ -358,48 +432,68 @@ def precond_diag_plain(ops: GroupedOps, hinv6, n_cameras, *, cp):
     return D.index_add_(2, ops.obs_cam, D_m).permute(2, 0, 1).contiguous()
 
 
-def _launch_spmv(name, ops, vec, vec_shape, out_shape, cp, C):
-    from pysfm_tpu_torch.solver.kernels import _build
-
-    dev = vec.device
-    P, M = ops.n_points, ops.n_obs
-    _check_ops(ops, dev)
-    b, bf16 = _check_rows(ops, cp, dev)
-    _check(name + " input", vec, torch.float32, vec_shape, dev)
-    if cp not in (6, 9, 10):
-        raise ValueError(f"cp={cp}: the kernels take 6, 9 or 10 camera dof")
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    if name == "hcpT_x":
-        idx, ptr = ops.obs_cam, ops.pt_ptr
-    else:
-        idx, ptr = ops.obs_pt, ops.cam_ptr
-    err = _build.library().pysfm_spmv(
-        _OP_ID[name], cp, bf16, b.data_ptr(), vec.data_ptr(), idx.data_ptr(),
-        ptr.data_ptr(), ops.cam_perm.data_ptr(), C, P, M, out.data_ptr(),
-        _stream(dev),
-    )
-    _launched(name, err)
-    return out
-
-
 def hcpT_x(ops: GroupedOps, x, *, cp):
     """``u = Hcp^T x`` (JAX ``hcpT_x_grouped`` / ``hcpT_x_grouped2``):
     ``x [CP, C]`` -> ``u [3, P]``,
-    ``u[s, p] = sum_{m of p} sum_d b_rows[s*CP+d, m] x[d, cam(m)]``."""
+    ``u[s, p] = sum_{m of p} sum_d b_rows[s*CP+d, m] x[d, cam(m)]``.  The
+    kernel reads ``b_rows`` in order, tile by tile of ``ops.tile_pt``, with
+    x in shared memory when it fits."""
     if not _route(x):
         return hcpT_x_plain(ops, x, cp=cp)
-    C = ops.n_cameras
-    return _launch_spmv("hcpT_x", ops, x, (cp, C), (3, ops.n_points), cp, C)
+    return _launch_hcpT_x(ops, x, cp, None)
+
+
+def _launch_hcpT_x(ops: GroupedOps, x, cp, x_shared: Optional[bool]):
+    """The ``hcpT_x`` kernel with x in shared memory (True; raises where it
+    does not fit), gathered from global memory (False), or chosen by size
+    (None, as :func:`hcpT_x` does).  Both branches give the same bits."""
+    dev = x.device
+    C, P, M = ops.n_cameras, ops.n_points, ops.n_obs
+    _check_ops(ops, dev)
+    b = _rows(ops)
+    bf16 = _check_rows("b_rows", b, cp, M, dev)
+    _check("hcpT_x input", x, torch.float32, (cp, C), dev)
+    u = torch.empty((3, P), dtype=torch.float32, device=dev)
+    err = _lib().pysfm_hcpT_x(
+        cp, bf16, b.data_ptr(), x.data_ptr(), C, ops.obs_cam.data_ptr(),
+        ops.pt_ptr.data_ptr(), P, ops.tile_pt.data_ptr(), ops.tile_pt.shape[0] - 1,
+        HCPT_X_TILE, M, -1 if x_shared is None else int(x_shared), u.data_ptr(),
+        _stream(dev),
+    )
+    _launched("hcpT_x", err)
+    return u
 
 
 def hcp_w(ops: GroupedOps, w3, n_cameras, *, cp):
     """``y = Hcp w`` (JAX ``hcp_w_grouped`` / ``hcp_w_grouped2``):
     ``w3 [3, P]`` -> ``y [CP, C]``,
-    ``y[d, c] = sum_{m of c} sum_s b_rows[s*CP+d, m] w3[s, pt(m)]``."""
+    ``y[d, c] = sum_{m of c} sum_s b_rows[s*CP+d, m] w3[s, pt(m)]``.  The
+    kernel reads the camera-sorted ``ops.b_cam`` in order (chunks of
+    ``ops.chunk_off``, then a fixed-order sum per camera); without it, it
+    raises."""
     if not _route(w3):
         return hcp_w_plain(ops, w3, n_cameras, cp=cp)
-    return _launch_spmv("hcp_w", ops, w3, (3, ops.n_points), (cp, n_cameras), cp,
-                        n_cameras)
+    dev = w3.device
+    C, P, M = ops.n_cameras, ops.n_points, ops.n_obs
+    if n_cameras != C:
+        raise ValueError(f"n_cameras={n_cameras}, but the layout has {C} cameras")
+    _check_ops(ops, dev)
+    if ops.b_cam is None:
+        raise ValueError("ops.b_cam is not built: the hcp_w kernel reads the camera-sorted "
+                         "rows that build_eqs returns (GroupedOps.replace(b_cam=...))")
+    b = ops.b_cam
+    bf16 = _check_rows("b_cam", b, cp, M, dev)
+    _check("hcp_w input", w3, torch.float32, (3, P), dev)
+    n_chunks = ops.chunk_off.shape[0] - 1
+    partial = torch.empty((cp, n_chunks), dtype=torch.float32, device=dev)
+    y = torch.empty((cp, C), dtype=torch.float32, device=dev)
+    err = _lib().pysfm_hcp_w(
+        cp, bf16, b.data_ptr(), w3.data_ptr(), P, ops.cam_pt.data_ptr(),
+        ops.chunk_off.data_ptr(), n_chunks, ops.chunk_ptr.data_ptr(), C, M,
+        partial.data_ptr(), y.data_ptr(), _stream(dev),
+    )
+    _launched("hcp_w", err)
+    return y
 
 
 def precond_diag(ops: GroupedOps, hinv6, n_cameras, *, cp):
@@ -408,5 +502,19 @@ def precond_diag(ops: GroupedOps, hinv6, n_cameras, *, cp):
     returns ``D [C, CP, CP]``, symmetric."""
     if not _route(hinv6):
         return precond_diag_plain(ops, hinv6, n_cameras, cp=cp)
-    return _launch_spmv("precond_diag", ops, hinv6, (6, ops.n_points),
-                        (n_cameras, cp, cp), cp, n_cameras)
+    dev = hinv6.device
+    C, P, M = ops.n_cameras, ops.n_points, ops.n_obs
+    if n_cameras != C:
+        raise ValueError(f"n_cameras={n_cameras}, but the layout has {C} cameras")
+    _check_ops(ops, dev)
+    b = _rows(ops)
+    bf16 = _check_rows("b_rows", b, cp, M, dev)
+    _check("precond_diag input", hinv6, torch.float32, (6, P), dev)
+    D = torch.empty((C, cp, cp), dtype=torch.float32, device=dev)
+    err = _lib().pysfm_precond_diag(
+        cp, bf16, b.data_ptr(), hinv6.data_ptr(), P, ops.obs_pt.data_ptr(),
+        ops.cam_ptr.data_ptr(), ops.cam_perm.data_ptr(), C, M, D.data_ptr(),
+        _stream(dev),
+    )
+    _launched("precond_diag", err)
+    return D

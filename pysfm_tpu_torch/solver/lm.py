@@ -253,15 +253,19 @@ def _solve_std(
 
 def make_grouped_ops(cmp: cm.CMProblem, rows_dtype=None) -> spmv.GroupedOps:
     """The kernel operands of a CMProblem (once per problem): CSR offsets of
-    each point's observations, the observations sorted by camera, and the
-    measurements, on the problem's device.  Pass the result to
-    :func:`solve` / :func:`solve_cm` as ``gops``.
+    each point's observations, the observations sorted by camera, the plans
+    of the two CG products, and the measurements, on the problem's device.
+    Pass the result to :func:`solve` / :func:`solve_cm` as ``gops``.
 
     ``rows_dtype`` is the storage type of the per-iteration coupling rows
-    ``b_rows`` (default: the problem's dtype).  ``torch.bfloat16`` halves
-    the rows' memory and the bytes every CG product streams; all kernel
-    arithmetic stays f32, so the CG operator is a fixed bf16-rounded S
-    whose ~4e-3 relative rounding sits inside a ``cg_tol`` of 1e-2."""
+    (default: the problem's dtype).  Each linearization stores them twice,
+    ``b_rows`` point-sorted and ``b_cam`` camera-sorted, ``2 * 3*CP*M``
+    elements: 720 MB at Venice (M ~ 5M, CP = 6) in f32.  The loop drops a
+    linearization before it builds the next, so one pair is live at a time.
+    ``torch.bfloat16`` halves the rows' memory and the bytes every CG
+    product streams; all kernel arithmetic stays f32, so the CG operator is
+    a fixed bf16-rounded S whose ~4e-3 relative rounding sits inside a
+    ``cg_tol`` of 1e-2."""
     return spmv.grouped_ops(
         cmp.obs_cam, cmp.obs_pt, cmp.n_cameras, cmp.n_points,
         cmp.u, cmp.v, cmp.obs_w,
@@ -296,8 +300,8 @@ def cm_lm_loop(
     accept/reject), with the CG step of ``solver/pcg.py``, the
     Eisenstat-Walker forcing sequence (``config.cg_forcing="ew"``), the CG
     warm start, and ``config.reuse_linearization``: after a rejected step
-    the parameters are unchanged, so the carried ``(eqs, b_rows)`` are
-    reused instead of rebuilt, and a solve builds ``1 +`` (steps accepted
+    the parameters are unchanged, so the carried ``(eqs, b_rows, b_cam)``
+    are reused instead of rebuilt, and a solve builds ``1 +`` (steps accepted
     before its last iteration) times.
 
     With ``gops`` the cost, the normal equations and every product with Hcp
@@ -323,14 +327,15 @@ def cm_lm_loop(
         return scale.cost_scale_cm(q, config.obs_chunk)
 
     def build_lin(q):
-        """(eqs, b_rows) linearized at q; b_rows is None off the kernels."""
+        """(eqs, b_rows, b_cam) linearized at q; the rows are None off the
+        kernels."""
         if gops is not None:
             return spmv.build_eqs(
                 gops, cm.cam_table(q), q.X3, q.robust_scale,
                 cp=q.cam_dof, model=q.camera_model, robust=q.robust,
                 n_cameras=q.n_cameras, n_points=q.n_points,
             )
-        return scale.build_normal_equations_scale_cm(q, config.obs_chunk), None
+        return scale.build_normal_equations_scale_cm(q, config.obs_chunk), None, None
 
     reuse_lin = config.reuse_linearization
     cost = cost_fn(cmp)
@@ -358,9 +363,12 @@ def cm_lm_loop(
     it = 0
     while it < n_it:
         if not reuse_lin or (prev_ok and it > 0):
+            # Nothing reads the old linearization now: free its rows before
+            # the new ones are stored, so that one pair of copies is live.
+            lin = eqs = b_rows = b_cam = gops_it = None
             lin = build_lin(p)
-        eqs, b_rows = lin
-        gops_it = None if gops is None else gops.replace(b_rows=b_rows)
+        eqs, b_rows, b_cam = lin
+        gops_it = None if gops is None else gops.replace(b_rows=b_rows, b_cam=b_cam)
         grad_inf = torch.maximum(
             torch.max(torch.abs(eqs.g_c)), torch.max(torch.abs(eqs.g_p))
         )

@@ -10,10 +10,10 @@ system ``S dc = rhs`` is solved without forming S:
 Three operator routes, chosen by :func:`build_pcg_system` as in the JAX
 module:
 
-- **kernels** (``gops`` given, coupling rows only in ``gops.b_rows``): the
-  reduced rhs, the block-Jacobi diagonal and every product with Hcp run
-  through :mod:`~pysfm_tpu_torch.solver.kernels.spmv` (CUDA kernels on the
-  card, their plain versions on the CPU);
+- **kernels** (``gops`` given, coupling rows only in ``gops.b_rows`` and
+  ``gops.b_cam``): the reduced rhs, the block-Jacobi diagonal and every
+  product with Hcp run through :mod:`~pysfm_tpu_torch.solver.kernels.spmv`
+  (CUDA kernels on the card, their plain versions on the CPU);
 - **tables**: ``B_cm`` gathered once per LM iteration into the padded
   point-major and camera-major visibility tables;
 - **segment sums** over the observations (``index_add_``), the independent
@@ -58,7 +58,7 @@ class PCGSystem(NamedTuple):
     B_cm: Optional[torch.Tensor]    # [3*CP, M]
     obs_cam: Optional[torch.Tensor]
     obs_pt: Optional[torch.Tensor]
-    # Kernel operands (spmv.GroupedOps with b_rows set) on the kernel
+    # Kernel operands (spmv.GroupedOps with b_rows, b_cam set) on the kernel
     # route: every product with Hcp runs through the spmv kernels.
     gops: Optional[object] = None
     # The damped block diagonal of S, kept only for the power-series
@@ -93,9 +93,10 @@ def build_pcg_system(
     preconditioner: everything except S itself.
 
     ``eqs`` is a :class:`scale.ScaleEqs` (the native layout) or a
-    :class:`schur.NormalEqs` (converted).  The route: the kernels when ``gops`` is given and the coupling rows live
-    only in ``gops.b_rows`` (``eqs.B_cm is None``, as the K_E build returns
-    them), else the visibility tables when given, else segment sums."""
+    :class:`schur.NormalEqs` (converted).  The route: the kernels when
+    ``gops`` is given and the coupling rows live only in ``gops.b_rows`` /
+    ``gops.b_cam`` (``eqs.B_cm is None``, as the K_E build returns them),
+    else the visibility tables when given, else segment sums."""
     if isinstance(eqs, schur.NormalEqs):
         eqs = _eqs_to_cm(eqs)
     C, cp, _ = eqs.Hcc.shape
@@ -108,7 +109,7 @@ def build_pcg_system(
     Bp = camg = Bg = ptg = None
     B_keep = oc_keep = op_keep = None
     if use_grouped:
-        # Kernel route: the coupling rows live only in gops.b_rows, so the
+        # Kernel route: the coupling rows live only in gops, so the
         # rhs and the exact block-Jacobi diagonal come from the kernels.
         rhs_red = spmv.hcp_w(gops, u0, C, cp=cp).to(eqs.g_c.dtype)
         D = spmv.precond_diag(gops, hinv6, C, cp=cp).to(Hcc_aug.dtype)
@@ -335,7 +336,7 @@ def solve_step_pcg_cm3(
     standard-layout NormalEqs.
 
     ``dc_warm`` ([C, CP]) warm-starts CG with the previous LM iteration's
-    camera step; ``gops`` (a :class:`spmv.GroupedOps` with ``b_rows`` set)
+    camera step; ``gops`` (a :class:`spmv.GroupedOps` with the rows set)
     routes the products with Hcp through the kernels."""
     sys = build_pcg_system(
         eqs, lam, obs_cam, obs_pt,

@@ -29,6 +29,7 @@ from pysfm_tpu.solver import pcg as jpcg
 from pysfm_tpu.solver import scale as jscale
 from pysfm_tpu.solver.kernels import pallas_spmv
 from pysfm_tpu.solver.lm import make_grouped_ops as jmake_grouped_ops
+from pysfm_tpu_torch.pipeline import synthetic as tsyn
 from pysfm_tpu_torch.problem import cm as tcm
 from pysfm_tpu_torch.solver import scale as tscale
 from pysfm_tpu_torch.solver.kernels import spmv
@@ -111,20 +112,43 @@ def test_hcpT_x_and_hcp_w_match_pallas(rng, C, P):
         np.testing.assert_allclose(y.numpy(), np.asarray(yj), **F32)
 
     # f64: the plain versions against the JAX segment-sum route of pcg.py.
-    B64, x64, w64 = B.astype(np.float64), x.astype(np.float64), w3.astype(np.float64)
+    _plain_products_match_jax_f64(obs_cam, obs_pt, B.astype(np.float64),
+                                  x.astype(np.float64), w3.astype(np.float64), C, P)
+
+
+def _plain_products_match_jax_f64(obs_cam, obs_pt, B, x, w3, C, P):
+    """The f64 plain products against the JAX package's segment-sum
+    operator (``pcg._hcpT_x`` / ``pcg._hcp_w``) to 1e-10; returns (u, y)."""
+    cp = x.shape[0]
     jsys = jpcg.PCGSystem(
         Hcc_aug=jnp.zeros((C, cp, cp)), hinv6=jnp.zeros((6, P)),
         rhs=jnp.zeros((cp, C)), g_p=jnp.zeros((3, P)), M_inv=jnp.zeros((C, cp, cp)),
-        Bp=None, camg=None, Bg=None, ptg=None, B_cm=jnp.asarray(B64),
+        Bp=None, camg=None, Bg=None, ptg=None, B_cm=jnp.asarray(B),
         obs_cam=jnp.asarray(obs_cam), obs_pt=jnp.asarray(obs_pt),
     )
-    ops64 = ops.replace(b_rows=torch.from_numpy(B64))
-    np.testing.assert_allclose(
-        spmv.hcpT_x(ops64, torch.from_numpy(x64), cp=cp).numpy(),
-        np.asarray(jpcg._hcpT_x(jsys, jnp.asarray(x64))), **F64)
-    np.testing.assert_allclose(
-        spmv.hcp_w(ops64, torch.from_numpy(w64), C, cp=cp).numpy(),
-        np.asarray(jpcg._hcp_w(jsys, jnp.asarray(w64), C)), **F64)
+    ops64 = _port_ops(obs_cam, obs_pt, B, C, P)
+    u = spmv.hcpT_x(ops64, torch.from_numpy(x), cp=cp).numpy()
+    y = spmv.hcp_w(ops64, torch.from_numpy(w3), C, cp=cp).numpy()
+    np.testing.assert_allclose(u, np.asarray(jpcg._hcpT_x(jsys, jnp.asarray(x))), **F64)
+    np.testing.assert_allclose(y, np.asarray(jpcg._hcp_w(jsys, jnp.asarray(w3), C)), **F64)
+    return u, y
+
+
+@pytest.mark.parametrize("kind", ["empty_and_long_cameras", "point_seen_by_every_camera"])
+def test_plain_products_on_plan_edges_match_jax(kind):
+    """The same f64 check on the edge scenes of the CUDA kernels' plans
+    (``synthetic.plan_edge_incidence``): an empty camera's y is 0, as is an
+    unobserved point's u.  No interpret-mode call."""
+    obs_cam, obs_pt, C, P = tsyn.plan_edge_incidence(kind)
+    cp = 9
+    rng = np.random.default_rng(3)
+    B = rng.standard_normal((3 * cp, obs_cam.shape[0]))
+    u, y = _plain_products_match_jax_f64(obs_cam, obs_pt, B, rng.standard_normal((cp, C)),
+                                         rng.standard_normal((3, P)), C, P)
+    seen_c = np.bincount(obs_cam, minlength=C) > 0
+    seen_p = np.bincount(obs_pt, minlength=P) > 0
+    assert (~seen_c).any() or (~seen_p).any()
+    assert (y[:, ~seen_c] == 0).all() and (u[:, ~seen_p] == 0).all()
 
 
 def _bal_problems(dtype, model="pose", robust="huber", outlier_frac=0.0):
@@ -156,7 +180,7 @@ def test_build_eqs_precond_cost_match_pallas():
         n_points=jp.n_points, interpret=True,
     )
     ops = make_grouped_ops(tp)
-    eqs_t, b_t = _port_build(tp, ops)
+    eqs_t, b_t, _ = _port_build(tp, ops)
     assert eqs_t.B_cm is None and b_t.dtype == torch.float32
     for name in ("Hcc", "g_c", "hpp6", "g_p"):
         _f32_close(getattr(eqs_t, name).numpy(), getattr(eqs_k, name), err_msg=name)
@@ -167,7 +191,7 @@ def test_build_eqs_precond_cost_match_pallas():
     # bf16, so its bf16 rows are b_k rounded; the port's must be within one
     # bf16 ulp of them (the f32 values differ in the last bits).
     ops16 = make_grouped_ops(tp, rows_dtype=torch.bfloat16)
-    _, b16 = _port_build(tp, ops16)
+    _, b16, _ = _port_build(tp, ops16)
     assert b16.dtype == torch.bfloat16
     ref16 = np.asarray(jnp.asarray(b_k).astype(jnp.bfloat16).astype(jnp.float32))
     got16 = np.asarray(pallas_spmv.permute_b_rows(
@@ -202,7 +226,7 @@ def test_plain_versions_match_jax_scale_f64(model, robust):
     je = jscale.build_normal_equations_scale_cm(jp, 0)
     ops = make_grouped_ops(tp)
     assert ops.rows_dtype == torch.float64
-    te, b_t = _port_build(tp, ops)
+    te, b_t, _ = _port_build(tp, ops)
     for name in ("Hcc", "g_c", "hpp6", "g_p"):
         np.testing.assert_allclose(getattr(te, name).numpy(), np.asarray(getattr(je, name)),
                                    **F64, err_msg=name)
@@ -239,7 +263,7 @@ def test_payload_b_plain_matches_jax_reference(model):
     assert spmv.LAUNCHES == launches
     assert b.shape == (3 * tp.cam_dof, tp.n_obs) and b.dtype == torch.float64
     np.testing.assert_allclose(b.numpy(), ref, rtol=1e-12, atol=1e-12)
-    _, b_e = spmv.build_eqs_plain(*args, **kw, n_cameras=tp.n_cameras, n_points=tp.n_points)
+    _, b_e, _ = spmv.build_eqs_plain(*args, **kw, n_cameras=tp.n_cameras, n_points=tp.n_points)
     assert torch.equal(b, b_e)
     b16 = spmv.payload_b(ops.replace(rows_dtype=torch.bfloat16), *args[1:], **kw)
     assert torch.equal(b16, b.to(torch.bfloat16))
