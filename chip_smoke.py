@@ -26,13 +26,15 @@ Phases (any failure raises and the script exits non-zero):
    ``precond_diag``) against their plain versions on small ragged scenes
    (also one with C > 128): 3 camera models x 3 robust kernels, f32 and bf16
    coupling rows; K_D against K_E's rows too, and K_E's camera-sorted rows
-   ``b_cam`` bitwise ``b_rows[:, cam_perm]``; the two CG products on edge
-   shapes of their plans (a camera without observations, cameras with more
-   than one ``hcp_w`` chunk, points longer than an ``hcpT_x`` tile, x too
-   large for shared memory) for CP 6 / 9 / 10, ``hcpT_x`` in both branches
-   (x in shared memory, x from global memory) and bitwise equal across
-   them; two launches must agree bit for bit, f64 tensors must be refused,
-   and ``hcp_w`` without ``b_cam`` must raise;
+   ``b_cam`` bitwise ``b_rows[:, cam_perm]``; then on the edge shapes of
+   the plans (``synthetic.PLAN_EDGES``: a camera without observations,
+   cameras with more than one chunk, points longer than a tile, x too large
+   for shared memory) for CP 6 / 9 / 10: the two CG products and K_H on
+   random rows, ``hcpT_x`` in both branches (x in shared memory, x from
+   global memory) and bitwise equal across them, and all six kernels on a
+   scene built on the same observations (``synthetic.plan_edge_scene``);
+   two launches must agree bit for bit, f64 tensors must be refused, and
+   ``hcp_w`` and K_H without ``b_cam`` must raise;
 7. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
    "pcg", cg_forcing="ew", ...), gops=make_grouped_ops(...))`` on the
    bench.py headline scene (the same 50 / 10k scene), 30 iterations, with
@@ -158,6 +160,33 @@ def phase_env() -> str:
     return smi
 
 
+# Mangled template arguments of the pcg main path's instantiations: the
+# pose model (CP = 6), the Huber kernel, f32 rows.
+MAIN_PATH_ARGS = ("ILi0ELi1EfE", "ILi6EfE")
+
+
+def ptxas_registers(log: str) -> dict:
+    """ptxas -v: {(kernel name, mangled template arguments): registers a
+    thread} of every kernel instantiation in an nvcc log."""
+    regs, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5pysfm(\d+)(\w+)'", line)
+        if m:
+            key = (m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            regs[key] = int(m.group(1))
+            key = None
+    return regs
+
+
+def main_path_registers(log: str) -> dict:
+    """Registers a thread of K_E's two passes and K_H's first pass as the
+    pcg main path instantiates them."""
+    return {name: r for (name, args), r in sorted(ptxas_registers(log).items())
+            if name.startswith(("eqs_", "precond_")) and args.startswith(MAIN_PATH_ARGS)}
+
+
 def phase_build() -> float:
     from pysfm_tpu_torch.solver.kernels import _build
 
@@ -165,19 +194,13 @@ def phase_build() -> float:
     _build.library()
     regs = sorted({int(n) for n in re.findall(r"Used (\d+) registers", info.log)})
     spills = len([n for n in re.findall(r"(\d+) bytes spill stores", info.log) if n != "0"])
-    # ptxas -v: registers of each kernel's instantiations, by kernel name.
-    by_kernel, name = {}, None
-    for line in info.log.splitlines():
-        m = re.search(r"Compiling entry function '_ZN5pysfm(\d+)(\w+)'", line)
-        if m:
-            name = m.group(2)[:int(m.group(1))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            by_kernel.setdefault(name, set()).add(int(m.group(1)))
-            name = None
+    by_kernel = {}
+    for (name, _), r in ptxas_registers(info.log).items():
+        by_kernel.setdefault(name, set()).add(r)
     print(f"[build] {info.path.name} built={info.built} nvcc {info.seconds:.2f} s; "
           f"registers/thread {regs}, kernels with spills: {spills}; by kernel "
-          + ", ".join(f"{k} {min(v)}-{max(v)}" for k, v in sorted(by_kernel.items())))
+          + ", ".join(f"{k} {min(v)}-{max(v)}" for k, v in sorted(by_kernel.items()))
+          + f"; pcg main path (pose, Huber, f32 rows): {main_path_registers(info.log)}")
     return info.seconds
 
 
@@ -499,13 +522,19 @@ def phase_std(p, smi: str) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _bf16_ulp_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """bf16 tensors equal within one bf16 ulp (8 significant bits)."""
+def _bf16_beyond_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Where two bf16 tensors differ by more than one bf16 ulp (8
+    significant bits) of the larger."""
     a, b = a.float(), b.float()
     mag = torch.maximum(a.abs(), b.abs())
     ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
                       torch.zeros_like(mag))
-    return bool(((a - b).abs() <= ulp).all())
+    return (a - b).abs() > ulp
+
+
+def _bf16_ulp_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """bf16 tensors equal within one bf16 ulp."""
+    return not bool(_bf16_beyond_ulp(a, b).any())
 
 
 def _eqs_args(p, ops):
@@ -564,10 +593,13 @@ def _flat(out):
     return [out]
 
 
-def _check_pair(name, kernel, plain, bf16_rows):
+def _check_pair(name, kernel, plain, bf16_rows, f32_rows=None):
     """Kernel against plain on the same inputs, and two launches bit for
     bit; returns the worst abs error.  bf16 rows are held to one bf16 ulp
-    (the two round their f32 values independently)."""
+    of the plain version's (the two round their f32 values independently),
+    or, given ``f32_rows`` (the same kernel's rows stored in f32 on the same
+    inputs, themselves held to the plain version), to those rows rounded to
+    bf16 bit for bit."""
     outs, outs2 = _flat(kernel()), _flat(kernel())
     torch.cuda.synchronize()
     refs = _flat(plain())
@@ -575,11 +607,15 @@ def _check_pair(name, kernel, plain, bf16_rows):
         if not torch.equal(a, a2):
             raise AssertionError(f"{name}: two launches differ")
     worst = 0.0
+    rows_f32 = iter(f32_rows or ())
     for i, (a, b) in enumerate(zip(outs, refs)):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name}[{i}]: {a.shape} {a.dtype} != {b.shape} {b.dtype}")
         if bf16_rows and a.dtype == torch.bfloat16:
-            if not _bf16_ulp_ok(a, b):
+            if f32_rows is not None:
+                if not torch.equal(a, next(rows_f32).to(torch.bfloat16)):
+                    raise AssertionError(f"{name}: bf16 rows are not its f32 rows rounded")
+            elif not _bf16_ulp_ok(a, b):
                 raise AssertionError(f"{name}: bf16 rows differ by more than one ulp")
             continue
         err, ok = _max_err([a], [b])
@@ -613,17 +649,19 @@ def _b_cam_exact(label, ops, b_rows, b_cam) -> None:
         raise AssertionError(f"{label}: build_eqs b_cam != b_rows[:, cam_perm] bitwise")
 
 
-def _kernels_vs_plain(p, ops):
+def _kernels_vs_plain(p, ops, f32_rows=None):
     """All six kernels against their plain versions on problem p, K_D
     against K_E, and K_E's b_cam against its b_rows; returns ({name: worst
-    abs error}, K_D == K_E bitwise)."""
+    abs error}, K_D == K_E bitwise).  ``f32_rows`` ({kernel: its rows in
+    f32}, for bf16 ``ops``) holds the bf16 rows of K_E and K_D to those
+    rounded, as ``_check_pair`` says."""
     from pysfm_tpu_torch.solver.kernels import spmv
 
     bf16 = ops.rows_dtype == torch.bfloat16
     args, kw = _eqs_args(p, ops)
     eqs, b_rows, b_cam = spmv.build_eqs(*args, **kw)
     _b_cam_exact(f"C={p.n_cameras} {p.camera_model}/{p.robust}", ops, b_rows, b_cam)
-    errs = {name: _check_pair(name, kernel, plain, bf16)
+    errs = {name: _check_pair(name, kernel, plain, bf16, (f32_rows or {}).get(name))
             for name, (kernel, plain) in _spmv_pairs(p, ops, eqs, b_rows, b_cam).items()}
     return errs, _kd_vs_ke(p, ops, b_rows)
 
@@ -669,40 +707,62 @@ def phase_spmv_small() -> None:
             refused += 1
     if refused != 4:
         raise AssertionError("a pcg kernel wrapper accepted f64 CUDA tensors")
-    # hcp_w's kernel reads only the camera-sorted rows: without them it raises.
+    # hcp_w's and K_H's kernels read only the camera-sorted rows: without
+    # them they raise.
     ops32 = make_grouped_ops(p)
     args, kw = _eqs_args(p, ops32)
     _, b_rows, _ = spmv.build_eqs(*args, **kw)
-    try:
-        spmv.hcp_w(ops32.replace(b_rows=b_rows), torch.zeros((3, p.n_points), device="cuda"),
-                   p.n_cameras, cp=p.cam_dof)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("hcp_w ran on CUDA GroupedOps without b_cam")
+    no_b_cam = ops32.replace(b_rows=b_rows)
+    for name, call in (
+            ("hcp_w", lambda: spmv.hcp_w(no_b_cam, torch.zeros((3, p.n_points), device="cuda"),
+                                         p.n_cameras, cp=p.cam_dof)),
+            ("precond_diag", lambda: spmv.precond_diag(
+                no_b_cam, torch.zeros((6, p.n_points), device="cuda"), p.n_cameras,
+                cp=p.cam_dof))):
+        try:
+            call()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name} ran on CUDA GroupedOps without b_cam")
     print(f"[spmv kernels] 3 models x 3 robust kernels, f32 and bf16 rows, scenes (C, P, M) "
           f"{sorted(shapes)}: kernel == plain, max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (bound {KERNEL_TOL} x (max|ref|+1); bf16 rows within one ulp); two launches "
-          f"bitwise equal; f64 refused; hcp_w without b_cam refused; build_eqs b_cam == "
-          f"b_rows[:, cam_perm] bitwise in all {len(kd_bitwise)} cases; payload_b (K_D) == "
+          f"bitwise equal; f64 refused; hcp_w and precond_diag without b_cam refused; "
+          f"build_eqs b_cam == b_rows[:, cam_perm] bitwise in all {len(kd_bitwise)} cases; "
+          f"payload_b (K_D) == "
           f"build_eqs (K_E) rows within bound, bitwise equal in {sum(kd_bitwise)} of "
           f"{len(kd_bitwise)} cases")
     phase_spmv_edges()
 
 
+def _random_hinv6(P, g):
+    """Packed lower triangles (00, 10, 11, 20, 21, 22) of P random SPD 3x3
+    matrices A A^T + 0.1 I."""
+    A = torch.randn((P, 3, 3), generator=g, device="cuda")
+    H = A @ A.transpose(1, 2) + 0.1 * torch.eye(3, device="cuda")
+    return torch.stack([H[:, 0, 0], H[:, 1, 0], H[:, 1, 1], H[:, 2, 0], H[:, 2, 1],
+                        H[:, 2, 2]]).contiguous()
+
+
 def phase_spmv_edges() -> None:
-    """hcpT_x and hcp_w against their plain versions on the edge shapes of
-    their plans, CP 6 / 9 / 10, f32 and bf16 rows; two launches bitwise
-    equal.  hcpT_x runs as the path calls it (x placed by size) and in each
-    branch, x in shared memory and x from global memory, which must agree
-    bit for bit; x in shared memory must be refused where it does not fit."""
+    """The kernels on the edge shapes of the plans (synthetic.PLAN_EDGES),
+    CP 6 / 9 / 10, f32 and bf16 rows, each against its plain version with
+    two launches bitwise equal: hcpT_x, hcp_w and K_H on random rows (K_H
+    with random SPD point blocks; an empty camera's D exactly 0), and K_E
+    (with every other pcg kernel, K_D against K_E's rows and b_cam bitwise
+    b_rows[:, cam_perm]) on a scene built on the same observations.
+    hcpT_x runs as the path calls it (x placed by size) and in each branch,
+    x in shared memory and x from global memory, which must agree bit for
+    bit; x in shared memory must be refused where it does not fit."""
     from pysfm_tpu_torch.pipeline import synthetic
     from pysfm_tpu_torch.solver.kernels import spmv
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops
 
-    worst = {"hcpT_x": 0.0, "hcp_w": 0.0}
+    worst = {"hcpT_x": 0.0, "hcp_w": 0.0, "precond_diag": 0.0}
     shapes, refused = [], set()
-    for kind in synthetic.PLAN_EDGES[1:]:
+    for kind in synthetic.PLAN_EDGES:
         obs_cam, obs_pt, C, P = synthetic.plan_edge_incidence(kind)
         M = obs_cam.shape[0]
         dev_ids = [torch.from_numpy(a).to("cuda") for a in (obs_cam, obs_pt)]
@@ -712,6 +772,8 @@ def phase_spmv_edges() -> None:
         shapes.append((kind, C, P, M, int(track.max()),
                        int(torch.diff(ops.cam_ptr).max()), int((torch.diff(ops.cam_ptr) == 0).sum())))
         g = torch.Generator(device="cuda").manual_seed(len(shapes))
+        hinv6 = _random_hinv6(P, g)
+        empty = torch.diff(ops.cam_ptr) == 0
         for cp in (6, 9, 10):
             b32 = torch.randn((3 * cp, M), generator=g, device="cuda")
             x = torch.randn((cp, C), generator=g, device="cuda")
@@ -726,7 +788,12 @@ def phase_spmv_edges() -> None:
                      lambda: spmv._launch_hcpT_x(it, x, cp, False),
                      lambda: spmv.hcpT_x_plain(it, x, cp=cp)),
                     ("hcp_w", lambda: spmv.hcp_w(it, w3, C, cp=cp),
-                     lambda: spmv.hcp_w_plain(it, w3, C, cp=cp))]
+                     lambda: spmv.hcp_w_plain(it, w3, C, cp=cp)),
+                    ("precond_diag", lambda: spmv.precond_diag(it, hinv6, C, cp=cp),
+                     lambda: spmv.precond_diag_plain(it, hinv6, C, cp=cp))]
+                if bool(spmv.precond_diag(it, hinv6, C, cp=cp)[empty].any()):
+                    raise AssertionError(f"precond_diag ({kind}, CP={cp}): an empty camera's "
+                                         "D is not 0")
                 try:
                     shared = spmv._launch_hcpT_x(it, x, cp, True)
                 except RuntimeError:
@@ -741,12 +808,49 @@ def phase_spmv_edges() -> None:
                     err = _check_pair(f"{name} ({kind}, CP={cp}, {rows})", kernel, plain, False)
                     key = name.split()[0]
                     worst[key] = max(worst[key], err)
+    # K_E (and the rest) on a scene on the same observations, one camera
+    # model for each CP.  The bf16 rows of K_E and K_D are held bit for bit
+    # to their f32 rows rounded (those within KERNEL_TOL of the plain
+    # version): an entry where the row's two products nearly cancel differs
+    # from the plain f32 value by more than a bf16 ulp of itself while
+    # inside the f32 bound; such entries are counted.
+    eqs_worst = dict.fromkeys(SPMV_KERNELS, 0.0)
+    kd_bitwise, beyond_ulp, n_rows = [], 0, 0
+    for kind in synthetic.PLAN_EDGES:
+        for model in ("pose", "bal", "pose_k"):
+            p = synthetic.plan_edge_scene(kind, camera_model=model, device="cuda")
+            ops32 = make_grouped_ops(p)
+            errs, same = _kernels_vs_plain(p, ops32)
+            eqs_worst = {k: max(eqs_worst[k], errs[k]) for k in eqs_worst}
+            kd_bitwise.append(same)
+            args, kw = _eqs_args(p, ops32)
+            _, r32, c32 = spmv.build_eqs(*args, **kw)
+            k32 = spmv.payload_b(*args, cp=p.cam_dof, model=model, robust=p.robust)
+            ops16 = make_grouped_ops(p, rows_dtype=torch.bfloat16)
+            errs, same = _kernels_vs_plain(
+                p, ops16, {"build_eqs": [r32, c32], "payload_b": [k32]})
+            eqs_worst = {k: max(eqs_worst[k], errs[k]) for k in eqs_worst}
+            kd_bitwise.append(same)
+            args16, _ = _eqs_args(p, ops16)
+            _, r16, _ = spmv.build_eqs(*args16, **kw)
+            _, p16, _ = spmv.build_eqs_plain(*args16, **kw)
+            beyond_ulp += int(_bf16_beyond_ulp(r16, p16).sum())
+            n_rows += r16.numel()
     print("[spmv kernels] edge shapes (kind, C, P, M, longest track, most observations of a "
           f"camera, cameras without observations) {shapes}, CP 6/9/10, f32 and bf16 rows: "
-          f"kernel == plain, max abs err hcpT_x {worst['hcpT_x']:.3e} (both branches), hcp_w "
-          f"{worst['hcp_w']:.3e}; two launches bitwise equal; hcpT_x with x in shared memory "
-          f"== x from global memory bitwise, refused at (kind, CP) {sorted(refused)} "
-          f"(chunk {spmv.HCP_W_CHUNK}, tile {spmv.HCPT_X_TILE})")
+          f"kernel == plain on random rows, max abs err hcpT_x {worst['hcpT_x']:.3e} (both "
+          f"branches), hcp_w {worst['hcp_w']:.3e}, precond_diag {worst['precond_diag']:.3e} "
+          f"(random SPD Hinv; empty cameras' D exactly 0); two launches bitwise equal; hcpT_x "
+          f"with x in shared memory == x from global memory bitwise, refused at (kind, CP) "
+          f"{sorted(refused)} (chunk {spmv.HCP_W_CHUNK}, tile {spmv.HCPT_X_TILE})")
+    print("[spmv kernels] edge scenes (plan_edge_scene: the same observations, models pose / "
+          "bal / pose_k, Huber), f32 and bf16 rows: kernel == plain, max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in eqs_worst.items())
+          + f"; bf16 rows of K_E and K_D == their f32 rows rounded, bitwise; K_E bf16 row "
+          f"entries beyond one ulp of the plain version's: {beyond_ulp} of {n_rows}; build_eqs "
+          f"b_cam == b_rows[:, cam_perm] bitwise in all {len(kd_bitwise)} cases; payload_b (K_D) "
+          f"== build_eqs (K_E) rows within bound, bitwise equal in {sum(kd_bitwise)} of "
+          f"{len(kd_bitwise)}")
     # 6000 cameras x CP 10 x 4 B = 240 KB of x: over the H100's 227 KB a block.
     if refused != {("x_too_large_for_shared_memory", 10)}:
         raise AssertionError(f"hcpT_x refused x in shared memory at {sorted(refused)}")
@@ -778,7 +882,9 @@ def _spmv_cost(name, p, ops, b_rows):
         nbytes = rb + 4 * (3 * P + 2 * M + C + 1 + cp * C)
         ops = M * 2 * 3 * cp
     else:
-        nbytes = rb + 4 * (6 * P + 2 * M + C + 1 + C * cp * cp)
+        # K_H: one copy of the rows, each observation's point (cam_pt),
+        # hinv6 once and D.
+        nbytes = rb + 4 * (M + 6 * P + C * cp * cp)
         ops = M * (5 * 3 * cp + 6 * ntri)
     return nbytes, ops
 

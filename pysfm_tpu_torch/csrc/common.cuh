@@ -1,5 +1,6 @@
 // Helpers shared by the pcg route's kernels (eqs.cu, spmv.cu): the storage
-// type of the coupling rows, and a deterministic block-wide sum.
+// type of the coupling rows, a deterministic block-wide sum, and the
+// fixed-order second pass of the per-chunk camera sums.
 #pragma once
 
 #include <cstddef>
@@ -70,6 +71,52 @@ __device__ __forceinline__ void tri_index(int i, int& d, int& e) {
     ++d;
   }
   e = i;
+}
+
+// The sum of camera c's chunk partials in one row of partial [.., n_chunks],
+// in chunk order (chunk_ptr [C+1]: camera c owns chunks chunk_ptr[c] ..
+// chunk_ptr[c+1]); 0 for a camera without observations.
+__device__ __forceinline__ float chunk_sum(const float* __restrict__ row,
+                                           const int32_t* __restrict__ chunk_ptr, int c) {
+  float s = 0.f;
+  const int i1 = __ldg(chunk_ptr + c + 1);
+  for (int i = __ldg(chunk_ptr + c); i < i1; ++i) s += row[i];
+  return s;
+}
+
+// Second pass of the per-chunk camera sums (K_H, K_E's camera pass): row r
+// of partial [n_rows, n_chunks] is entry r of a packed lower triangle
+// (r < tri(CP)), written to both halves of S [C, CP, CP], or entry r -
+// tri(CP) of g [C, CP].  One thread per (row, camera).
+template <int CP>
+__global__ void __launch_bounds__(kBlock)
+camera_combine_kernel(const float* __restrict__ partial, int n_chunks,
+                      const int32_t* __restrict__ chunk_ptr, int C, int n_rows,
+                      float* __restrict__ S, float* __restrict__ g) {
+  constexpr int NT = CP * (CP + 1) / 2;
+  const int idx = blockIdx.x * kBlock + threadIdx.x;
+  if (idx >= n_rows * C) return;
+  const int r = idx / C;
+  const int c = idx - r * C;
+  const float s = chunk_sum(partial + r * static_cast<size_t>(n_chunks), chunk_ptr, c);
+  const size_t cs = static_cast<size_t>(c);
+  if (r < NT) {
+    int d, e;
+    tri_index(r, d, e);
+    S[(cs * CP + d) * CP + e] = s;
+    S[(cs * CP + e) * CP + d] = s;
+  } else {
+    g[cs * CP + (r - NT)] = s;
+  }
+}
+
+template <int CP>
+cudaError_t launch_camera_combine(const float* partial, int n_chunks, const int32_t* chunk_ptr,
+                                  int C, int n_rows, float* S, float* g, cudaStream_t s) {
+  const int64_t n = static_cast<int64_t>(n_rows) * C;
+  camera_combine_kernel<CP><<<static_cast<int>((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
+      partial, n_chunks, chunk_ptr, C, n_rows, S, g);
+  return cudaGetLastError();
 }
 
 }  // namespace pysfm

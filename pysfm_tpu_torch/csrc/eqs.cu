@@ -5,34 +5,44 @@
 // build_eqs_grouped (K_E, _ke_kernel, :843 / :929), payload_b_grouped (K_D,
 // _kd_kernel, :703 / :762) and cost_grouped (K_C, _kc_kernel, :1091 /
 // :1149).  Inputs are the CMProblem's own arrays, observations sorted by
-// point:
+// point, and the static layout of spmv.py's GroupedOps:
 //   ctab [Dc, C]  packed camera table (problem/cm.py: cam_table)
 //   X3 [3, P]     points, component-major
 //   obs_cam, obs_pt, u, v, w [M]
-//   pt_ptr [P+1]  CSR offsets of each point's observations
-//   cam_ptr [C+1], cam_perm [M]  observation ids stably sorted by camera
+//   pt_ptr [P+1], tile_pt  each point's observations; point-aligned tiles
+//   cam_perm [M]  observation ids stably sorted by camera, and in that
+//                 order cam_pt, u_cam, v_cam, w_cam [M] (obs_pt[cam_perm],
+//                 ...); chunk_off / chunk_ptr  chunks of at most 1024
+//                 camera-sorted observations inside one camera
 //
 // K_E writes, for the linearization at the current parameters,
 //   b_rows [3*CP, M]  row k*CP + d = w (Jc0d Jp0k + Jc1d Jp1k), f32 or bf16,
-//                     point-sorted (read by hcpT_x and K_H)
+//                     point-sorted (read by hcpT_x)
 //   b_cam [3*CP, M]   the same rows camera-sorted, b_cam[:, j] =
-//                     b_rows[:, cam_perm[j]] bit for bit (read by hcp_w)
+//                     b_rows[:, cam_perm[j]] bit for bit (read by hcp_w, K_H)
 //   hpp6 [6, P], g_p [3, P]       point blocks (lower triangle) and gradient
 //   Hcc [C, CP, CP], g_c [C, CP]  camera blocks (full, symmetric) and gradient
 // in two passes that share one device function (linearize, in
 // project_jac.cuh) and one row expression (coupling_row), so they see the
 // same residuals, Jacobians and weights and store the same row bits:
-// - point pass: one thread per point walks its CSR range in order, writes
-//   the b_rows columns and keeps the 6 + 3 point sums in registers;
-// - camera pass: one block per camera walks cam_perm, recomputes the
-//   projection (cheap next to storing the rows again), stores column j of
-//   b_cam (the JAX package's permute_b_rows, :150, done where the rows are
-//   computed) and reduces the tri(CP) + CP camera sums with block_sum
-//   (common.cuh).
+// - point pass: one block per point-aligned tile (tile_pt, the plan of
+//   hcpT_x), one thread per observation.  Thread m stores column m of
+//   b_rows, so neighbouring threads store neighbouring columns of every row
+//   (coalesced, as in K_D), and parks its 9 point terms in shared memory
+//   (36 KB at 1024 observations a tile); one thread per point then adds its
+//   range there in order.  A point alone in its tile (a track longer than
+//   half a tile) is summed block-wide (block_sum, common.cuh).
+// - camera pass: one block per chunk (chunk_off, the plan of hcp_w and
+//   K_H), ~200 blocks at the 50-camera headline where one per camera gave
+//   50.  Thread j reads cam_pt, u_cam, v_cam, w_cam in order (coalesced),
+//   recomputes the projection (cheap next to storing the rows again),
+//   stores column j of b_cam (the JAX package's permute_b_rows, :150, done
+//   where the rows are computed) and keeps the chunk's tri(CP) + CP camera
+//   sums in registers; a block_sum gives the chunk's partials, and
+//   camera_combine_kernel (common.cuh) adds each camera's in chunk order.
 // K_D writes b_rows alone: one thread per observation (grid-stride), the
-// same linearize call and row expression as K_E's point pass, so neighbouring
-// threads store neighbouring columns of every row (coalesced, unlike K_E's
-// point pass).  No solve path calls it, as in the JAX package.
+// same linearize call and row expression as K_E's passes.  No solve path
+// calls it, as in the JAX package.
 // K_C: one thread per observation (grid-stride), per-block partial sums in
 // double, then one block adds the partials in a fixed order.
 // No atomics anywhere: every output is the same bit for bit on every run.
@@ -41,18 +51,17 @@
 // reads ~24 B an observation (ids, u, v, w, the cam_perm entry) and writes
 // one copy of the rows, 3*CP*4 B (72 B for the pose model in f32), so it is
 // bound by the row stores; the tables ctab and X3 are L2-resident or read
-// once.  At the Venice scale (M ~ 5M) that is ~0.53 GB, ~0.16 ms.  The
-// second copy, b_cam, is this port's layout for hcp_w, not part of the
-// function: it costs 3*CP*4*M more bytes stored (360 MB at Venice in f32,
-// 180 MB in bf16; ~0.11 ms more at the memory rate), reported apart.  The
-// LM loop frees a linearization before it builds the next, so one pair of
-// copies is live.  K_D reads 20 B an
-// observation and writes one copy of the rows: ~0.46 GB, ~0.14 ms.  K_C
-// reads ~24 B an observation, ~0.04 ms there.  The point pass writes b_rows
-// strided by the track length within a warp (threads own neighbouring
-// points), so its stores coalesce only partly; the camera pass reads u, v,
-// w, obs_pt through cam_perm, scattered, and stores b_cam coalesced.  Both
-// passes are the first design; measured times are in PERF.md.
+// once.  At the Venice scale (M ~ 5M) that is ~0.53 GB, ~0.16 ms.  This
+// port's layout adds, outside the function's bytes, the second copy b_cam
+// (3*CP*4*M bytes stored: 360 MB at Venice in f32, 180 MB in bf16; ~0.11
+// ms more at the memory rate, reported apart) and the camera pass's 16 B an
+// observation of camera-sorted inputs.  The LM loop frees a linearization
+// before it builds the next, so one pair of copies is live.  K_D reads 20 B
+// an observation and writes one copy of the rows: ~0.46 GB, ~0.14 ms.  K_C
+// reads ~24 B an observation, ~0.04 ms there.  Both K_E passes hold a
+// linearization per thread (the camera pass also its tri(CP) + CP sums);
+// registers and spills are in ptxas's report, which chip_smoke.py prints,
+// and measured times in PERF.md.
 //
 // C entries, called through ctypes: they launch on the given stream,
 // allocate nothing, do not synchronize, and return cudaGetLastError().
@@ -70,89 +79,152 @@ __device__ __forceinline__ float coupling_row(const ProjJac<MODEL>& o, float wq,
   return wq * (o.Jc[0][d] * o.Jp[0][k] + o.Jc[1][d] * o.Jp[1][k]);
 }
 
+// Observation m of point p: linearize, store column m of b_rows (the
+// point pass's store, coalesced across a warp), and return the point's 9
+// terms, hpp6 (lower triangle 00, 10, 11, 20, 21, 22, as scale.TRI3) then
+// g_p.
+template <int MODEL, int ROBUST, typename TR>
+__device__ __forceinline__ void point_terms(const float* __restrict__ ctab, int C,
+                                            const float* __restrict__ X3, int P,
+                                            const int32_t* __restrict__ obs_cam,
+                                            const float* __restrict__ u,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ w, float sc,
+                                            size_t Ms, int m, int p,
+                                            TR* __restrict__ b_rows, float (&h)[9]) {
+  constexpr int CP = ModelTraits<MODEL>::CP;
+  ProjJac<MODEL> o;
+  const float wq = linearize<MODEL, ROBUST>(ctab, C, X3, P, __ldg(obs_cam + m), p,
+                                            __ldg(u + m), __ldg(v + m), __ldg(w + m), sc, o);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int d = 0; d < CP; ++d) {
+      row_store(b_rows + (k * CP + d) * Ms + m, coupling_row(o, wq, k, d));
+    }
+  }
+  const float wr0 = wq * o.r[0];
+  const float wr1 = wq * o.r[1];
+  h[0] = wq * (o.Jp[0][0] * o.Jp[0][0] + o.Jp[1][0] * o.Jp[1][0]);
+  h[1] = wq * (o.Jp[0][1] * o.Jp[0][0] + o.Jp[1][1] * o.Jp[1][0]);
+  h[2] = wq * (o.Jp[0][1] * o.Jp[0][1] + o.Jp[1][1] * o.Jp[1][1]);
+  h[3] = wq * (o.Jp[0][2] * o.Jp[0][0] + o.Jp[1][2] * o.Jp[1][0]);
+  h[4] = wq * (o.Jp[0][2] * o.Jp[0][1] + o.Jp[1][2] * o.Jp[1][1]);
+  h[5] = wq * (o.Jp[0][2] * o.Jp[0][2] + o.Jp[1][2] * o.Jp[1][2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) h[6 + k] = o.Jp[0][k] * wr0 + o.Jp[1][k] * wr1;
+}
+
+// Point pass: one block per tile of tile_pt, one thread per observation.
+// Thread m parks its 9 point terms in shared memory and one thread per
+// point then adds its range there in order; a point alone in its tile
+// (track longer than half a tile) is a block-wide sum instead.
 template <int MODEL, int ROBUST, typename TR>
 __global__ void __launch_bounds__(kBlock)
 eqs_point_kernel(const float* __restrict__ ctab, int C,
                  const float* __restrict__ X3, int P,
                  const int32_t* __restrict__ obs_cam,
+                 const int32_t* __restrict__ obs_pt,
                  const float* __restrict__ u, const float* __restrict__ v,
                  const float* __restrict__ w,
-                 const int32_t* __restrict__ pt_ptr,
+                 const int32_t* __restrict__ pt_ptr,    // [P+1]
+                 const int32_t* __restrict__ tile_pt,   // [n_tiles+1]
+                 int tile_obs,
                  const float* __restrict__ scale, int M,
                  TR* __restrict__ b_rows,          // [3*CP, M]
                  float* __restrict__ hpp6,         // [6, P]
                  float* __restrict__ g_p) {        // [3, P]
-  constexpr int CP = ModelTraits<MODEL>::CP;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  if (p >= P) return;
+  extern __shared__ float q[];                     // [9, tile_obs]
+  __shared__ float red[kBlock / 32 * 9];
   const size_t Ms = static_cast<size_t>(M);
   const size_t Ps = static_cast<size_t>(P);
   const float sc = __ldg(scale);
-  float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float g[3] = {0.f, 0.f, 0.f};
-  const int m1 = __ldg(pt_ptr + p + 1);
-  for (int m = __ldg(pt_ptr + p); m < m1; ++m) {
-    ProjJac<MODEL> o;
-    const float wq = linearize<MODEL, ROBUST>(
-        ctab, C, X3, P, __ldg(obs_cam + m), p, __ldg(u + m), __ldg(v + m),
-        __ldg(w + m), sc, o);
+  const int t = blockIdx.x;
+  const int p0 = __ldg(tile_pt + t);
+  const int p1 = __ldg(tile_pt + t + 1);
+  const int lo = __ldg(pt_ptr + p0);
+  const int hi = __ldg(pt_ptr + p1);
+  if (p1 - p0 == 1) {
+    float acc[9];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int i = 0; i < 9; ++i) acc[i] = 0.f;
+    for (int m = lo + threadIdx.x; m < hi; m += kBlock) {
+      float h[9];
+      point_terms<MODEL, ROBUST, TR>(ctab, C, X3, P, obs_cam, u, v, w, sc, Ms, m, p0,
+                                     b_rows, h);
 #pragma unroll
-      for (int d = 0; d < CP; ++d) {
-        row_store(b_rows + (k * CP + d) * Ms + m, coupling_row(o, wq, k, d));
-      }
+      for (int i = 0; i < 9; ++i) acc[i] += h[i];
     }
-    const float wr0 = wq * o.r[0];
-    const float wr1 = wq * o.r[1];
-    // Lower triangle (00, 10, 11, 20, 21, 22), as scale.TRI3.
-    h[0] += wq * (o.Jp[0][0] * o.Jp[0][0] + o.Jp[1][0] * o.Jp[1][0]);
-    h[1] += wq * (o.Jp[0][1] * o.Jp[0][0] + o.Jp[1][1] * o.Jp[1][0]);
-    h[2] += wq * (o.Jp[0][1] * o.Jp[0][1] + o.Jp[1][1] * o.Jp[1][1]);
-    h[3] += wq * (o.Jp[0][2] * o.Jp[0][0] + o.Jp[1][2] * o.Jp[1][0]);
-    h[4] += wq * (o.Jp[0][2] * o.Jp[0][1] + o.Jp[1][2] * o.Jp[1][1]);
-    h[5] += wq * (o.Jp[0][2] * o.Jp[0][2] + o.Jp[1][2] * o.Jp[1][2]);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) g[k] += o.Jp[0][k] * wr0 + o.Jp[1][k] * wr1;
+    const float total = block_sum<9>(acc, red);
+    if (threadIdx.x < 6) {
+      hpp6[threadIdx.x * Ps + p0] = total;
+    } else if (threadIdx.x < 9) {
+      g_p[(threadIdx.x - 6) * Ps + p0] = total;
+    }
+    return;
   }
+  for (int m = lo + threadIdx.x; m < hi; m += kBlock) {
+    float h[9];
+    point_terms<MODEL, ROBUST, TR>(ctab, C, X3, P, obs_cam, u, v, w, sc, Ms, m,
+                                   __ldg(obs_pt + m), b_rows, h);
 #pragma unroll
-  for (int i = 0; i < 6; ++i) hpp6[i * Ps + p] = h[i];
+    for (int i = 0; i < 9; ++i) q[i * tile_obs + (m - lo)] = h[i];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < p1 - p0; i += kBlock) {
+    const int a = __ldg(pt_ptr + p0 + i) - lo;
+    const int e = __ldg(pt_ptr + p0 + i + 1) - lo;
+    float s[9];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) g_p[k * Ps + p] = g[k];
+    for (int k = 0; k < 9; ++k) s[k] = 0.f;
+    for (int j = a; j < e; ++j) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) s[k] += q[k * tile_obs + j];
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) hpp6[k * Ps + p0 + i] = s[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g_p[k * Ps + p0 + i] = s[6 + k];
+  }
 }
 
+// Camera pass: one block per chunk of chunk_off (camera-sorted observations,
+// never across a camera).  Thread j reads the camera-sorted cam_pt, u, v, w
+// in order, recomputes the projection, stores column j of b_cam, and keeps
+// the chunk's tri(CP) + CP camera sums, reduced to partial [NV, n_chunks];
+// camera_combine_kernel (common.cuh) adds each camera's in chunk order.
 template <int MODEL, int ROBUST, typename TR>
 __global__ void __launch_bounds__(kBlock)
 eqs_camera_kernel(const float* __restrict__ ctab, int C,
                   const float* __restrict__ X3, int P,
-                  const int32_t* __restrict__ obs_pt,
-                  const float* __restrict__ u, const float* __restrict__ v,
-                  const float* __restrict__ w,
-                  const int32_t* __restrict__ cam_ptr,
+                  const int32_t* __restrict__ obs_cam,
                   const int32_t* __restrict__ cam_perm,
+                  const int32_t* __restrict__ cam_pt,
+                  const float* __restrict__ u_cam, const float* __restrict__ v_cam,
+                  const float* __restrict__ w_cam,
+                  const int32_t* __restrict__ chunk_off,  // [n_chunks+1]
+                  int n_chunks,
                   const float* __restrict__ scale, int M,
                   TR* __restrict__ b_cam,           // [3*CP, M], camera-sorted
-                  float* __restrict__ Hcc,          // [C, CP, CP]
-                  float* __restrict__ g_c) {        // [C, CP]
+                  float* __restrict__ partial) {    // [tri(CP) + CP, n_chunks]
   constexpr int CP = ModelTraits<MODEL>::CP;
   constexpr int NT = CP * (CP + 1) / 2;
   constexpr int NV = NT + CP;
   __shared__ float smem[kBlock / 32 * NV];
-  const int c = blockIdx.x;
+  const int i = blockIdx.x;
   const size_t Ms = static_cast<size_t>(M);
   const float sc = __ldg(scale);
+  const int j0 = __ldg(chunk_off + i);
+  const int j1 = __ldg(chunk_off + i + 1);
+  const int c = __ldg(obs_cam + __ldg(cam_perm + j0));  // the chunk's camera
   float acc[NV];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) acc[i] = 0.f;
-  const int j1 = __ldg(cam_ptr + c + 1);
-  for (int j = __ldg(cam_ptr + c) + threadIdx.x; j < j1; j += kBlock) {
-    const int m = __ldg(cam_perm + j);
+  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
+  for (int j = j0 + threadIdx.x; j < j1; j += kBlock) {
     ProjJac<MODEL> o;
     const float wq = linearize<MODEL, ROBUST>(
-        ctab, C, X3, P, c, __ldg(obs_pt + m), __ldg(u + m), __ldg(v + m),
-        __ldg(w + m), sc, o);
-    // Column j of the camera-sorted copy: neighbouring threads store
-    // neighbouring columns.
+        ctab, C, X3, P, c, __ldg(cam_pt + j), __ldg(u_cam + j), __ldg(v_cam + j),
+        __ldg(w_cam + j), sc, o);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
 #pragma unroll
@@ -173,15 +245,7 @@ eqs_camera_kernel(const float* __restrict__ ctab, int C,
     }
   }
   const float total = block_sum<NV>(acc, smem);
-  const size_t cs = static_cast<size_t>(c);
-  if (threadIdx.x < NT) {
-    int d, e;
-    tri_index(threadIdx.x, d, e);
-    Hcc[(cs * CP + d) * CP + e] = total;
-    Hcc[(cs * CP + e) * CP + d] = total;
-  } else if (threadIdx.x < NV) {
-    g_c[cs * CP + (threadIdx.x - NT)] = total;
-  }
+  if (threadIdx.x < NV) partial[threadIdx.x * static_cast<size_t>(n_chunks) + i] = total;
 }
 
 template <int MODEL, int ROBUST, typename TR>
@@ -256,6 +320,7 @@ cost_final_kernel(const double* __restrict__ partial, int n,
   if (threadIdx.x == 0) out[0] = static_cast<float>(0.5 * total);
 }
 
+// The observation inputs of K_E, K_D and K_C.
 struct EqsArgs {
   const float* ctab;
   int C;
@@ -266,11 +331,25 @@ struct EqsArgs {
   const float* u;
   const float* v;
   const float* w;
-  const int32_t* pt_ptr;
-  const int32_t* cam_ptr;
-  const int32_t* cam_perm;
   const float* scale;
   int M;
+};
+
+// K_E's plans and camera-sorted inputs: the point pass's tiles, the camera
+// pass's chunks, and the chunk partials' scratch.
+struct EqsPlan {
+  const int32_t* pt_ptr;
+  const int32_t* tile_pt;
+  int n_tiles, tile_obs;
+  const int32_t* cam_perm;
+  const int32_t* cam_pt;
+  const float* u_cam;
+  const float* v_cam;
+  const float* w_cam;
+  const int32_t* chunk_off;
+  int n_chunks;
+  const int32_t* chunk_ptr;
+  float* partial;
 };
 
 // K_E's outputs: the rows in both orders, then the camera and point sums.
@@ -284,33 +363,40 @@ struct EqsOut {
 };
 
 template <int MODEL, int ROBUST, typename TR>
-void launch_eqs(const EqsArgs& a, const EqsOut& out, cudaStream_t s) {
-  const int pblocks = (a.P + kBlock - 1) / kBlock;
-  eqs_point_kernel<MODEL, ROBUST, TR><<<pblocks, kBlock, 0, s>>>(
-      a.ctab, a.C, a.X3, a.P, a.obs_cam, a.u, a.v, a.w, a.pt_ptr, a.scale,
-      a.M, static_cast<TR*>(out.b_rows), out.hpp6, out.g_p);
-  eqs_camera_kernel<MODEL, ROBUST, TR><<<a.C, kBlock, 0, s>>>(
-      a.ctab, a.C, a.X3, a.P, a.obs_pt, a.u, a.v, a.w, a.cam_ptr, a.cam_perm,
-      a.scale, a.M, static_cast<TR*>(out.b_cam), out.Hcc, out.g_c);
+cudaError_t launch_eqs(const EqsArgs& a, const EqsPlan& pl, const EqsOut& out,
+                       cudaStream_t s) {
+  constexpr int CP = ModelTraits<MODEL>::CP;
+  const size_t q_bytes = sizeof(float) * 9 * static_cast<size_t>(pl.tile_obs);
+  eqs_point_kernel<MODEL, ROBUST, TR><<<pl.n_tiles, kBlock, q_bytes, s>>>(
+      a.ctab, a.C, a.X3, a.P, a.obs_cam, a.obs_pt, a.u, a.v, a.w, pl.pt_ptr, pl.tile_pt,
+      pl.tile_obs, a.scale, a.M, static_cast<TR*>(out.b_rows), out.hpp6, out.g_p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  eqs_camera_kernel<MODEL, ROBUST, TR><<<pl.n_chunks, kBlock, 0, s>>>(
+      a.ctab, a.C, a.X3, a.P, a.obs_cam, pl.cam_perm, pl.cam_pt, pl.u_cam, pl.v_cam,
+      pl.w_cam, pl.chunk_off, pl.n_chunks, a.scale, a.M, static_cast<TR*>(out.b_cam),
+      pl.partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_camera_combine<CP>(pl.partial, pl.n_chunks, pl.chunk_ptr, a.C,
+                                   CP * (CP + 1) / 2 + CP, out.Hcc, out.g_c, s);
 }
 
 template <int MODEL, int ROBUST>
-void launch_eqs_rows(const EqsArgs& a, int rows_bf16, const EqsOut& out, cudaStream_t s) {
-  if (rows_bf16) {
-    launch_eqs<MODEL, ROBUST, __nv_bfloat16>(a, out, s);
-  } else {
-    launch_eqs<MODEL, ROBUST, float>(a, out, s);
-  }
+cudaError_t launch_eqs_rows(const EqsArgs& a, const EqsPlan& pl, int rows_bf16,
+                            const EqsOut& out, cudaStream_t s) {
+  return rows_bf16 ? launch_eqs<MODEL, ROBUST, __nv_bfloat16>(a, pl, out, s)
+                   : launch_eqs<MODEL, ROBUST, float>(a, pl, out, s);
 }
 
 template <int MODEL>
-bool eqs_robust(int robust, const EqsArgs& a, int rows_bf16, const EqsOut& out,
-                cudaStream_t s) {
+cudaError_t eqs_robust(int robust, const EqsArgs& a, const EqsPlan& pl, int rows_bf16,
+                       const EqsOut& out, cudaStream_t s) {
   switch (robust) {
-    case ROBUST_GAUSSIAN: launch_eqs_rows<MODEL, ROBUST_GAUSSIAN>(a, rows_bf16, out, s); return true;
-    case ROBUST_HUBER:    launch_eqs_rows<MODEL, ROBUST_HUBER>(a, rows_bf16, out, s); return true;
-    case ROBUST_CAUCHY:   launch_eqs_rows<MODEL, ROBUST_CAUCHY>(a, rows_bf16, out, s); return true;
-    default: return false;
+    case ROBUST_GAUSSIAN: return launch_eqs_rows<MODEL, ROBUST_GAUSSIAN>(a, pl, rows_bf16, out, s);
+    case ROBUST_HUBER:    return launch_eqs_rows<MODEL, ROBUST_HUBER>(a, pl, rows_bf16, out, s);
+    case ROBUST_CAUCHY:   return launch_eqs_rows<MODEL, ROBUST_CAUCHY>(a, pl, rows_bf16, out, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -370,30 +456,35 @@ extern "C" cudaError_t pysfm_build_eqs(
     int model, int robust, int rows_bf16, const void* ctab, int C,
     const void* X3, int P, const void* obs_cam, const void* obs_pt,
     const void* u, const void* v, const void* w, const void* pt_ptr,
-    const void* cam_ptr, const void* cam_perm, const void* scale, int M,
-    void* b_rows, void* b_cam, void* Hcc, void* g_c, void* hpp6, void* g_p,
-    void* stream) {
+    const void* tile_pt, int n_tiles, int tile_obs, const void* cam_perm,
+    const void* cam_pt, const void* u_cam, const void* v_cam, const void* w_cam,
+    const void* chunk_off, int n_chunks, const void* chunk_ptr, const void* scale,
+    int M, void* partial, void* b_rows, void* b_cam, void* Hcc, void* g_c,
+    void* hpp6, void* g_p, void* stream) {
   using namespace pysfm;
-  if (M <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
+  if (M <= 0 || P <= 0 || C <= 0 || n_tiles <= 0 || tile_obs <= 0 || n_chunks <= 0) {
+    return cudaErrorInvalidValue;
+  }
   const EqsArgs a{
       static_cast<const float*>(ctab), C, static_cast<const float*>(X3), P,
       static_cast<const int32_t*>(obs_cam), static_cast<const int32_t*>(obs_pt),
       static_cast<const float*>(u), static_cast<const float*>(v),
-      static_cast<const float*>(w), static_cast<const int32_t*>(pt_ptr),
-      static_cast<const int32_t*>(cam_ptr), static_cast<const int32_t*>(cam_perm),
-      static_cast<const float*>(scale), M};
+      static_cast<const float*>(w), static_cast<const float*>(scale), M};
+  const EqsPlan pl{
+      static_cast<const int32_t*>(pt_ptr), static_cast<const int32_t*>(tile_pt), n_tiles,
+      tile_obs, static_cast<const int32_t*>(cam_perm), static_cast<const int32_t*>(cam_pt),
+      static_cast<const float*>(u_cam), static_cast<const float*>(v_cam),
+      static_cast<const float*>(w_cam), static_cast<const int32_t*>(chunk_off), n_chunks,
+      static_cast<const int32_t*>(chunk_ptr), static_cast<float*>(partial)};
   const EqsOut out{b_rows, b_cam, static_cast<float*>(Hcc), static_cast<float*>(g_c),
                    static_cast<float*>(hpp6), static_cast<float*>(g_p)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
   switch (model) {
-    case MODEL_POSE:   ok = eqs_robust<MODEL_POSE>(robust, a, rows_bf16, out, s); break;
-    case MODEL_POSE_K: ok = eqs_robust<MODEL_POSE_K>(robust, a, rows_bf16, out, s); break;
-    case MODEL_BAL:    ok = eqs_robust<MODEL_BAL>(robust, a, rows_bf16, out, s); break;
-    default: break;
+    case MODEL_POSE:   return eqs_robust<MODEL_POSE>(robust, a, pl, rows_bf16, out, s);
+    case MODEL_POSE_K: return eqs_robust<MODEL_POSE_K>(robust, a, pl, rows_bf16, out, s);
+    case MODEL_BAL:    return eqs_robust<MODEL_BAL>(robust, a, pl, rows_bf16, out, s);
+    default:           return cudaErrorInvalidValue;
   }
-  if (!ok) return cudaErrorInvalidValue;
-  return cudaGetLastError();
 }
 
 extern "C" cudaError_t pysfm_cost(
@@ -407,8 +498,7 @@ extern "C" cudaError_t pysfm_cost(
       static_cast<const float*>(ctab), C, static_cast<const float*>(X3), P,
       static_cast<const int32_t*>(obs_cam), static_cast<const int32_t*>(obs_pt),
       static_cast<const float*>(u), static_cast<const float*>(v),
-      static_cast<const float*>(w), nullptr, nullptr, nullptr,
-      static_cast<const float*>(scale), M};
+      static_cast<const float*>(w), static_cast<const float*>(scale), M};
   double* part = static_cast<double*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -434,8 +524,7 @@ extern "C" cudaError_t pysfm_payload_b(
       static_cast<const float*>(ctab), C, static_cast<const float*>(X3), P,
       static_cast<const int32_t*>(obs_cam), static_cast<const int32_t*>(obs_pt),
       static_cast<const float*>(u), static_cast<const float*>(v),
-      static_cast<const float*>(w), nullptr, nullptr, nullptr,
-      static_cast<const float*>(scale), M};
+      static_cast<const float*>(w), static_cast<const float*>(scale), M};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   switch (model) {

@@ -13,10 +13,10 @@
 // The TPU kernels stream one grouped copy of the rows (permute_b_rows, :150)
 // and reduce by point with a segmented scan (_seg_scan, :182), because
 // Mosaic's one fast gather is local to an (8, 128) register.  Here K_E
-// (eqs.cu) writes the rows twice, once in each order a product reads:
+// (eqs.cu) writes the rows twice, once in each order a kernel reads:
 //   b_rows [3*CP, M]  point-sorted (the CMProblem's order, the B_cm layout)
 //   b_cam  [3*CP, M]  camera-sorted: b_cam[:, j] = b_rows[:, cam_perm[j]]
-// so both products stream their rows in order, neighbouring threads on
+// so every kernel streams its rows in order, neighbouring threads on
 // neighbouring columns of each row (coalesced; a warp reads 128 B of a row
 // in f32).  A static plan, built once per problem (spmv.py: grouped_ops),
 // cuts each stream into pieces a block can own:
@@ -40,23 +40,34 @@
 //   partials in chunk order (chunk_ptr).  That is ~200 blocks at the
 //   50-camera headline and ~5k at Venice, where one block per camera gave
 //   50 and 1712.
-// - precond_diag (K_H, the first design, not yet redesigned) reads b_rows
-//   through cam_perm, one 4-byte element per 32-byte sector, one block per
-//   camera.
+// - precond_diag (K_H) runs on the same chunks of b_cam and cam_pt.  A
+//   first pass packs hinv6 [6, P] point-major as hinv_pt [P, 8], so that
+//   each observation's Hinv is one 32-byte sector (six scattered sectors
+//   from hinv6, 24 MB at Venice, were the kernel's largest traffic).  Each
+//   thread keeps the tri(CP) sums of B_m Hinv B_m^T in registers (21, 45,
+//   55 for CP 6, 9, 10) while cp.async stages its next column of f32 rows
+//   in shared memory (bf16 rows, 2 bytes, are loaded directly); a
+//   block_sum gives the chunk's partials [tri(CP), n_chunks], and the
+//   second pass (camera_combine_kernel, common.cuh) adds each camera's in
+//   chunk order and writes both halves of D.  ~216 f32 operations per 72 B
+//   of rows at CP = 6, ~3 a byte, far under the card's ridge: tensor cores
+//   do not help, moving fewer bytes does.
 // No float atomics: every output is the same bit for bit on every run.
 //
-// Bound on the H100 SXM (3.35 TB/s): each product streams one copy of the
+// Bound on the H100 SXM (3.35 TB/s): each kernel streams one copy of the
 // rows once, 3*CP*4 B an observation in f32 (2 B in bf16), plus 4 B of
-// indices; at the Venice scale (M ~ 5M, pose, f32) ~0.4 GB, ~0.12 ms.  The
-// rows are loaded with the streaming hint (evict first) so that x and w3
-// stay in L2.  The second copy costs K_E one more coalesced store of the
-// rows and the device 3*CP*4*M bytes more (360 MB at Venice in f32, 180 MB
-// in bf16).
+// indices (K_H: and D, and hinv6 once); at the Venice scale (M ~ 5M, pose,
+// f32) ~0.4 GB, ~0.12 ms.  The rows are loaded with the streaming hint
+// (evict first) so that x and w3 stay in L2 (K_H's f32 rows go through
+// cp.async instead).  The second copy costs
+// K_E one more coalesced store of the rows and the device 3*CP*4*M bytes
+// more (360 MB at Venice in f32, 180 MB in bf16).
 //
 // C entries, called through ctypes: they launch on the given stream,
 // allocate nothing, do not synchronize, and return the first CUDA error.
 #include <map>
 #include <mutex>
+#include <type_traits>
 #include <utility>
 
 #include "common.cuh"
@@ -193,46 +204,113 @@ hcp_w_combine_kernel(const float* __restrict__ partial,    // [CP, n_chunks]
   if (idx >= cp * C) return;
   const int d = idx / C;
   const int c = idx - d * C;
-  const float* row = partial + d * static_cast<size_t>(n_chunks);
-  float s = 0.f;
-  const int i1 = __ldg(chunk_ptr + c + 1);
-  for (int i = __ldg(chunk_ptr + c); i < i1; ++i) s += row[i];
-  y[idx] = s;
+  y[idx] = chunk_sum(partial + d * static_cast<size_t>(n_chunks), chunk_ptr, c);
 }
 
+// Hinv of every point as [P, 8] (6 entries of the lower triangle, then 2
+// pad): one 32-byte sector a point, so that K_H's gather of an
+// observation's Hinv touches one sector instead of the six of hinv6 [6, P].
+__global__ void __launch_bounds__(kBlock)
+pack_hinv_kernel(const float* __restrict__ hinv6, int P, float4* __restrict__ hinv_pt) {
+  const int p = blockIdx.x * kBlock + threadIdx.x;
+  if (p >= P) return;
+  const size_t Ps = static_cast<size_t>(P);
+  const size_t ps = static_cast<size_t>(p);
+  hinv_pt[2 * ps] = make_float4(__ldg(hinv6 + p), __ldg(hinv6 + Ps + p),
+                                __ldg(hinv6 + 2 * Ps + p), __ldg(hinv6 + 3 * Ps + p));
+  hinv_pt[2 * ps + 1] = make_float4(__ldg(hinv6 + 4 * Ps + p), __ldg(hinv6 + 5 * Ps + p),
+                                    0.f, 0.f);
+}
+
+// Asynchronous 4-byte copy global -> shared (cp.async, L1-allocating), its
+// group commit, and the wait for all but the newest N groups.  The memory
+// clobbers keep the compiler from moving shared-memory reads across them.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// K_H's shared memory for f32 rows: two stages of 3*CP rows x kBlock
+// columns (36, 54 and 60 KB for CP 6, 9, 10).  bf16 rows are 2 bytes, under
+// cp.async's 4-byte minimum, and are loaded directly.
+template <int CP, typename TR>
+__host__ __device__ constexpr size_t precond_stage_bytes() {
+  return std::is_same<TR, float>::value ? sizeof(float) * 2 * 3 * CP * kBlock : 0;
+}
+
+// K_H's first pass: one block per chunk of camera-sorted observations
+// streams b_cam and cam_pt in order, gathers each observation's Hinv from
+// hinv_pt (one 32-byte sector, from L2), keeps the tri(CP) sums of
+// B_m Hinv B_m^T in registers and reduces them to the chunk's partials.
+// f32 rows are staged by cp.async, two stages deep: thread t copies column
+// j + kBlock of its rows while it computes column j, and reads back only
+// what it copied itself (no block barrier).
 template <int CP, typename TR>
 __global__ void __launch_bounds__(kBlock)
-precond_diag_kernel(const TR* __restrict__ b,    // [3*CP, M]
-                    const float* __restrict__ hinv6,  // [6, P]
-                    int P,
-                    const int32_t* __restrict__ obs_pt,
-                    const int32_t* __restrict__ cam_ptr,
-                    const int32_t* __restrict__ cam_perm,
-                    int C, int M,
-                    float* __restrict__ D) {     // [C, CP, CP]
+precond_chunk_kernel(const TR* __restrict__ b,               // b_cam [3*CP, M]
+                     const float4* __restrict__ hinv_pt,     // [P, 2] float4
+                     const int32_t* __restrict__ cam_pt,     // [M]
+                     const int32_t* __restrict__ chunk_off,  // [n_chunks+1]
+                     int n_chunks, int M,
+                     float* __restrict__ partial) {          // [tri(CP), n_chunks]
   constexpr int NT = CP * (CP + 1) / 2;
+  constexpr int NR = 3 * CP;
+  constexpr bool kStage = precond_stage_bytes<CP, TR>() > 0;
+  extern __shared__ float stage[];                           // [2, NR, kBlock]
   __shared__ float smem[kBlock / 32 * NT];
-  const int c = blockIdx.x;
+  const int i = blockIdx.x;
   const size_t Ms = static_cast<size_t>(M);
-  const size_t Ps = static_cast<size_t>(P);
   float acc[NT];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i] = 0.f;
-  const int j1 = __ldg(cam_ptr + c + 1);
-  for (int j = __ldg(cam_ptr + c) + threadIdx.x; j < j1; j += kBlock) {
-    const int m = __ldg(cam_perm + j);
-    const int p = __ldg(obs_pt + m);
-    // Hinv = [[ha, hb, hd], [hb, hc, he], [hd, he, hf]] (lower-tri order).
-    const float ha = __ldg(hinv6 + p), hb = __ldg(hinv6 + Ps + p),
-                hc = __ldg(hinv6 + 2 * Ps + p), hd = __ldg(hinv6 + 3 * Ps + p),
-                he = __ldg(hinv6 + 4 * Ps + p), hf = __ldg(hinv6 + 5 * Ps + p);
-    float B0[CP], B1[CP], B2[CP];
+  for (int k = 0; k < NT; ++k) acc[k] = 0.f;
+  const int j1 = __ldg(chunk_off + i + 1);
+  int j = __ldg(chunk_off + i) + threadIdx.x;
+  if constexpr (kStage) {
+    if (j < j1) {
 #pragma unroll
-    for (int d = 0; d < CP; ++d) {
-      B0[d] = row_load(b + d * Ms + m);
-      B1[d] = row_load(b + (CP + d) * Ms + m);
-      B2[d] = row_load(b + (2 * CP + d) * Ms + m);
+      for (int r = 0; r < NR; ++r) {
+        cp_async4(stage + r * kBlock + threadIdx.x,
+                  reinterpret_cast<const float*>(b) + r * Ms + j);
+      }
     }
+    cp_async_commit();
+  }
+  for (int k = 0; j < j1; j += kBlock, ++k) {
+    const int p = __ldg(cam_pt + j);
+    // Hinv = [[ha, hb, hd], [hb, hc, he], [hd, he, hf]] (lower-tri order).
+    const float4 h03 = __ldg(hinv_pt + 2 * static_cast<size_t>(p));
+    const float4 h45 = __ldg(hinv_pt + 2 * static_cast<size_t>(p) + 1);
+    const float ha = h03.x, hb = h03.y, hc = h03.z, hd = h03.w, he = h45.x, hf = h45.y;
+    float B[NR];
+    if constexpr (kStage) {
+      const int jn = j + kBlock;
+      if (jn < j1) {
+        float* next = stage + ((k + 1) & 1) * NR * kBlock;
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          cp_async4(next + r * kBlock + threadIdx.x,
+                    reinterpret_cast<const float*>(b) + r * Ms + jn);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      const float* cur = stage + (k & 1) * NR * kBlock;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) B[r] = cur[r * kBlock + threadIdx.x];
+    } else {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) B[r] = row_load_stream(b + r * Ms + j);
+    }
+    const float* B0 = B;
+    const float* B1 = B + CP;
+    const float* B2 = B + 2 * CP;
 #pragma unroll
     for (int d = 0; d < CP; ++d) {
       const float h0 = ha * B0[d] + hb * B1[d] + hd * B2[d];
@@ -245,13 +323,7 @@ precond_diag_kernel(const TR* __restrict__ b,    // [3*CP, M]
     }
   }
   const float total = block_sum<NT>(acc, smem);
-  if (threadIdx.x < NT) {
-    int d, e;
-    tri_index(threadIdx.x, d, e);
-    const size_t cs = static_cast<size_t>(c);
-    D[(cs * CP + d) * CP + e] = total;
-    D[(cs * CP + e) * CP + d] = total;
-  }
+  if (threadIdx.x < NT) partial[threadIdx.x * static_cast<size_t>(n_chunks) + i] = total;
 }
 
 struct HcptArgs {
@@ -288,14 +360,30 @@ cudaError_t device_limits(int dev, int& sms, int& optin) {
   return cudaSuccess;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory on device `dev`
+// (needed above 48 KB).  The attribute only grows, and is set once per
+// device, kernel and size, not on every launch.
+cudaError_t allow_dynamic_smem(int dev, const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> allowed;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = allowed[std::make_pair(dev, kernel)];
+  if (have < bytes) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    have = bytes;
+  }
+  return cudaSuccess;
+}
+
 // Persistent grid: as many blocks as fit on the card at this shared-memory
-// size, at most one per tile.  The kernel's shared-memory attribute only
-// grows, and its occupancy is read once per (device, size).
+// size, at most one per tile.  Its occupancy is read once per (device,
+// size).
 template <int CP, typename TR, bool STAGE_X>
 cudaError_t launch_hcpT_x(const HcptArgs& a, int dev, size_t smem, int sms, cudaStream_t s) {
   auto kernel = hcpT_x_kernel<CP, TR, STAGE_X>;
   static std::mutex mu;
-  static std::map<int, size_t> allowed;                   // device -> attribute
   static std::map<std::pair<int, size_t>, int> per_sm;    // (device, smem) -> blocks
   int resident = 0;
   {
@@ -303,13 +391,8 @@ cudaError_t launch_hcpT_x(const HcptArgs& a, int dev, size_t smem, int sms, cuda
     const auto key = std::make_pair(dev, smem);
     auto it = per_sm.find(key);
     if (it == per_sm.end()) {
-      cudaError_t err = cudaSuccess;
-      if (allowed[dev] < smem) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-        allowed[dev] = smem;
-      }
+      cudaError_t err = allow_dynamic_smem(dev, reinterpret_cast<const void*>(kernel), smem);
+      if (err != cudaSuccess) return err;
       int n = 0;
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kBlock, smem);
       if (err != cudaSuccess) return err;
@@ -379,20 +462,37 @@ struct PrecondArgs {
   const void* b;
   const float* hinv6;
   int P;
-  const int32_t* obs_pt;
-  const int32_t* cam_ptr;
-  const int32_t* cam_perm;
+  float* hinv_pt;
+  const int32_t* cam_pt;
+  const int32_t* chunk_off;
+  int n_chunks;
+  const int32_t* chunk_ptr;
   int C, M;
+  float* partial;
   float* D;
 };
 
 template <int CP, typename TR>
 struct PrecondDiag {
   static cudaError_t run(const PrecondArgs& a, cudaStream_t s) {
-    precond_diag_kernel<CP, TR><<<a.C, kBlock, 0, s>>>(
-        static_cast<const TR*>(a.b), a.hinv6, a.P, a.obs_pt, a.cam_ptr, a.cam_perm,
-        a.C, a.M, a.D);
-    return cudaGetLastError();
+    auto kernel = precond_chunk_kernel<CP, TR>;
+    constexpr size_t smem = precond_stage_bytes<CP, TR>();
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = allow_dynamic_smem(dev, reinterpret_cast<const void*>(kernel), smem);
+    }
+    if (err != cudaSuccess) return err;
+    float4* hinv_pt = reinterpret_cast<float4*>(a.hinv_pt);
+    pack_hinv_kernel<<<(a.P + kBlock - 1) / kBlock, kBlock, 0, s>>>(a.hinv6, a.P, hinv_pt);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kernel<<<a.n_chunks, kBlock, smem, s>>>(static_cast<const TR*>(a.b), hinv_pt, a.cam_pt,
+                                            a.chunk_off, a.n_chunks, a.M, a.partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_camera_combine<CP>(a.partial, a.n_chunks, a.chunk_ptr, a.C,
+                                     CP * (CP + 1) / 2, a.D, nullptr, s);
   }
 };
 
@@ -446,16 +546,17 @@ extern "C" cudaError_t pysfm_hcp_w(int cp, int rows_bf16, const void* b_cam,
   return dispatch<HcpW>(cp, rows_bf16, a, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" cudaError_t pysfm_precond_diag(int cp, int rows_bf16, const void* b_rows,
-                                          const void* hinv6, int P, const void* obs_pt,
-                                          const void* cam_ptr, const void* cam_perm,
-                                          int C, int M, void* D, void* stream) {
+extern "C" cudaError_t pysfm_precond_diag(int cp, int rows_bf16, const void* b_cam,
+                                          const void* hinv6, int P, void* hinv_pt,
+                                          const void* cam_pt, const void* chunk_off,
+                                          int n_chunks, const void* chunk_ptr, int C, int M,
+                                          void* partial, void* D, void* stream) {
   using namespace pysfm;
-  if (M <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const PrecondArgs a{b_rows, static_cast<const float*>(hinv6), P,
-                      static_cast<const int32_t*>(obs_pt),
-                      static_cast<const int32_t*>(cam_ptr),
-                      static_cast<const int32_t*>(cam_perm), C, M,
-                      static_cast<float*>(D)};
+  if (M <= 0 || P <= 0 || C <= 0 || n_chunks <= 0) return cudaErrorInvalidValue;
+  const PrecondArgs a{b_cam, static_cast<const float*>(hinv6), P,
+                      static_cast<float*>(hinv_pt), static_cast<const int32_t*>(cam_pt),
+                      static_cast<const int32_t*>(chunk_off), n_chunks,
+                      static_cast<const int32_t*>(chunk_ptr), C, M,
+                      static_cast<float*>(partial), static_cast<float*>(D)};
   return dispatch<PrecondDiag>(cp, rows_bf16, a, static_cast<cudaStream_t>(stream));
 }

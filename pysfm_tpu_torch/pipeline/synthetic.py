@@ -318,3 +318,44 @@ def plan_edge_incidence(kind: str, seed: int = 7):
         raise ValueError(f"kind={kind!r}: one of {PLAN_EDGES}")
     obs_cam, obs_pt = np.asarray(pairs, np.int64).T
     return obs_cam.astype(np.int32), obs_pt.astype(np.int32), C, P
+
+
+def plan_edge_scene(
+    kind: str,
+    *,
+    camera_model: str = "pose",
+    robust: str = "huber",
+    robust_scale: float = 2.0,
+    noise_px: float = 1.0,
+    outlier_frac: float = 0.05,
+    outlier_px: float = 40.0,
+    perturb: float = 0.02,
+    seed: int = 7,
+    dtype=np.float32,
+    device="cuda",
+):
+    """A :class:`~pysfm_tpu_torch.problem.cm.CMProblem` on the observations
+    of :func:`plan_edge_incidence` (``kind``, ``seed``): cameras on a ring
+    (radius 10) and points in a box, both perturbed, measurements from the
+    exact projections plus noise and outliers.  The scene on which the
+    normal-equation build is checked at the plans' edges (empty cameras,
+    cameras with more than one chunk, a point seen by every camera)."""
+    obs_cam, obs_pt, C, P = plan_edge_incidence(kind, seed)
+    rng = np.random.default_rng(seed + 1)
+    X = rng.uniform(-2.0, 2.0, size=(P, 3))
+    R, t, intr = _ring_cameras(rng, C, camera_model, 10.0)
+    ci, pi = obs_cam.astype(np.int64), obs_pt.astype(np.int64)
+    uv = projection.project(
+        camera_model, *(torch.from_numpy(a) for a in (R[ci], t[ci], intr[ci], X[pi]))
+    ).numpy()
+    uv += rng.normal(scale=noise_px, size=uv.shape)
+    n_out = int(outlier_frac * uv.shape[0])
+    which = rng.choice(uv.shape[0], size=n_out, replace=False)
+    uv[which] += rng.uniform(-outlier_px, outlier_px, size=(n_out, 2))
+    R = so3.exp(torch.from_numpy(rng.normal(scale=perturb, size=(C, 3)))).numpy() @ R
+    X = X + rng.normal(scale=perturb, size=X.shape)
+    from pysfm_tpu_torch.problem.cm import make_cm_problem
+
+    return make_cm_problem(R, t, intr, X, obs_cam, obs_pt, uv, camera_model=camera_model,
+                           robust=robust, robust_scale=robust_scale, dtype=dtype,
+                           device=device)

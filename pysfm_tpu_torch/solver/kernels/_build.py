@@ -43,12 +43,15 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int] + [_P] * 10 + [ctypes.c_int] + [_P] * 5,
     ),
     # cudaError_t pysfm_build_eqs(model, robust, rows_bf16, ctab, C, X3, P,
-    #     obs_cam, obs_pt, u, v, w, pt_ptr, cam_ptr, cam_perm, scale, M,
-    #     b_rows, b_cam, Hcc, g_c, hpp6, g_p, stream)
+    #     obs_cam, obs_pt, u, v, w, pt_ptr, tile_pt, n_tiles, tile_obs,
+    #     cam_perm, cam_pt, u_cam, v_cam, w_cam, chunk_off, n_chunks,
+    #     chunk_ptr, scale, M, partial, b_rows, b_cam, Hcc, g_c, hpp6, g_p,
+    #     stream)
     "pysfm_build_eqs": (
         ctypes.c_int,
-        [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 9
-        + [ctypes.c_int] + [_P] * 7,
+        [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 7
+        + [ctypes.c_int] * 2 + [_P] * 6 + [ctypes.c_int] + [_P] * 2 + [ctypes.c_int]
+        + [_P] * 8,
     ),
     # cudaError_t pysfm_payload_b(model, robust, rows_bf16, ctab, C, X3, P,
     #     obs_cam, obs_pt, u, v, w, scale, M, b_rows, stream)
@@ -78,12 +81,12 @@ _SIGNATURES = {
         [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_int] + [_P] * 2 + [ctypes.c_int, _P]
         + [ctypes.c_int] * 2 + [_P] * 3,
     ),
-    # cudaError_t pysfm_precond_diag(cp, rows_bf16, b_rows, hinv6, P, obs_pt,
-    #     cam_ptr, cam_perm, C, M, D, stream)
+    # cudaError_t pysfm_precond_diag(cp, rows_bf16, b_cam, hinv6, P, hinv_pt,
+    #     cam_pt, chunk_off, n_chunks, chunk_ptr, C, M, partial, D, stream)
     "pysfm_precond_diag": (
         ctypes.c_int,
-        [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_int] + [_P] * 3 + [ctypes.c_int] * 2
-        + [_P] * 2,
+        [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_int] + [_P] * 3 + [ctypes.c_int, _P]
+        + [ctypes.c_int] * 2 + [_P] * 3,
     ),
 }
 

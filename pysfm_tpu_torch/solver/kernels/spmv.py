@@ -13,19 +13,23 @@ copy of the rows, so that each CG product streams its rows in order:
 - ``pt_ptr [P+1]``: each point's observations are ``pt_ptr[p]:pt_ptr[p+1]``;
 - ``cam_perm [M]`` / ``cam_ptr [C+1]``: observation ids stably sorted by
   camera, and each camera's range of them; ``cam_pt = obs_pt[cam_perm]``;
+- ``u_cam``, ``v_cam``, ``w_cam [M]``: the measurements camera-sorted
+  (``u[cam_perm]``, ...), static, read by K_E's camera pass: 12 B an
+  observation, 60 MB at Venice;
 - ``b_rows [3*CP, M]``: the per-iteration coupling rows, row ``s*CP + d``,
-  point-sorted (exactly ``B_cm``), stored in ``rows_dtype``; ``hcpT_x`` and
-  K_H read it;
+  point-sorted (exactly ``B_cm``), stored in ``rows_dtype``; ``hcpT_x``
+  reads it;
 - ``b_cam [3*CP, M]``: the same rows camera-sorted, ``b_cam[:, j] ==
   b_rows[:, cam_perm[j]]`` bit for bit, stored by K_E's camera pass where it
-  computes them; ``hcp_w`` reads it.  It costs ``3*CP*M`` more elements:
-  360 MB at Venice (M ~ 5M, CP = 6) in f32, 180 MB in bf16;
-- the static plans of the two products: ``chunk_off`` / ``chunk_ptr`` cut
-  each camera's range into chunks of at most :data:`HCP_W_CHUNK`
-  observations (one ``hcp_w`` block each, then a fixed-order sum per
+  computes them; ``hcp_w`` and K_H read it.  It costs ``3*CP*M`` more
+  elements: 360 MB at Venice (M ~ 5M, CP = 6) in f32, 180 MB in bf16;
+- the static plans: ``chunk_off`` / ``chunk_ptr`` cut each camera's range
+  into chunks of at most :data:`HCP_W_CHUNK` observations (one block each
+  of ``hcp_w``, K_H and K_E's camera pass, then a fixed-order sum per
   camera); ``tile_pt`` cuts the point-sorted stream into tiles of whole
   points, at most :data:`HCPT_X_TILE` observations each, a point whose
-  track is longer than half a tile alone (one ``hcpT_x`` block each).
+  track is longer than half a tile alone (one block each of ``hcpT_x`` and
+  K_E's point pass).
 
 The superstep (two-phase) TPU kernels K_A2 / K_B2 compute what K_A / K_B
 compute; one kernel here replaces each pair.  Every sum has a fixed order
@@ -81,6 +85,9 @@ class GroupedOps:
     u: torch.Tensor          # [M] measured pixel u
     v: torch.Tensor          # [M] measured pixel v
     w: torch.Tensor          # [M] confidence weight
+    u_cam: torch.Tensor      # [M] u[cam_perm]
+    v_cam: torch.Tensor      # [M] v[cam_perm]
+    w_cam: torch.Tensor      # [M] w[cam_perm]
     rows_dtype: torch.dtype
     b_rows: Optional[torch.Tensor] = None   # [3*CP, M] in rows_dtype, point-sorted
     b_cam: Optional[torch.Tensor] = None    # [3*CP, M] in rows_dtype, camera-sorted
@@ -100,7 +107,7 @@ class GroupedOps:
     def replace(self, **changes) -> "GroupedOps":
         """A copy with ``changes``.  New ``b_rows`` without ``b_cam`` drop the
         old ``b_cam``, which belongs to another linearization: the ``hcp_w``
-        kernel then raises instead of reading stale rows."""
+        and K_H kernels then raise instead of reading stale rows."""
         if "b_rows" in changes and "b_cam" not in changes:
             changes["b_cam"] = None
         return dataclasses.replace(self, **changes)
@@ -166,6 +173,7 @@ def grouped_ops(obs_cam, obs_pt, n_cameras: int, n_points: int, u, v, w,
         cam_ptr=cam_ptr, cam_perm=cam_perm, cam_pt=obs_pt[cam_perm],
         chunk_off=chunk_off, chunk_ptr=chunk_ptr,
         tile_pt=_tile_plan(pt_ptr, HCPT_X_TILE), u=u, v=v, w=w,
+        u_cam=u[cam_perm], v_cam=v[cam_perm], w_cam=w[cam_perm],
         rows_dtype=rows_dtype,
     )
 
@@ -186,6 +194,13 @@ def _rows(ops: GroupedOps) -> torch.Tensor:
     return ops.b_rows
 
 
+def _b_cam(ops: GroupedOps, kernel: str) -> torch.Tensor:
+    if ops.b_cam is None:
+        raise ValueError(f"ops.b_cam is not built: the {kernel} kernel reads the camera-sorted "
+                         "rows that build_eqs returns (GroupedOps.replace(b_cam=...))")
+    return ops.b_cam
+
+
 def _check_ops(ops: GroupedOps, dev) -> None:
     M, C, P = ops.n_obs, ops.n_cameras, ops.n_points
     i32, f32 = torch.int32, torch.float32
@@ -194,7 +209,7 @@ def _check_ops(ops: GroupedOps, dev) -> None:
                         ("chunk_off", ops.chunk_off.shape), ("chunk_ptr", (C + 1,)),
                         ("tile_pt", ops.tile_pt.shape)):
         _check(name, getattr(ops, name), i32, shape, dev)
-    for name in ("u", "v", "w"):
+    for name in ("u", "v", "w", "u_cam", "v_cam", "w_cam"):
         _check(name, getattr(ops, name), f32, (M,), dev)
 
 
@@ -262,18 +277,26 @@ def _launch_build_eqs(ops, ctab, X3, robust_scale, cp, model, robust, C, P):
     _check("robust_scale", robust_scale, f32, (), dev)
     if ops.rows_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"rows_dtype {ops.rows_dtype}: the kernel stores f32 or bf16 rows")
+    if cp != projection.CAM_DOF[model]:
+        raise ValueError(f"cp={cp} is not the {model!r} model's {projection.CAM_DOF[model]}")
     b_rows = torch.empty((3 * cp, M), dtype=ops.rows_dtype, device=dev)
     b_cam = torch.empty_like(b_rows)
     Hcc = torch.empty((C, cp, cp), dtype=f32, device=dev)
     g_c = torch.empty((C, cp), dtype=f32, device=dev)
     hpp6 = torch.empty((6, P), dtype=f32, device=dev)
     g_p = torch.empty((3, P), dtype=f32, device=dev)
+    n_chunks = ops.chunk_off.shape[0] - 1
+    # The camera pass's per-chunk sums: tri(CP) of Hcc, then CP of g_c.
+    partial = torch.empty((cp * (cp + 1) // 2 + cp, n_chunks), dtype=f32, device=dev)
     err = _lib().pysfm_build_eqs(
         _MODEL_ID[model], _ROBUST_ID[robust], int(ops.rows_dtype == torch.bfloat16),
         ctab.data_ptr(), C, X3.data_ptr(), P,
         ops.obs_cam.data_ptr(), ops.obs_pt.data_ptr(), ops.u.data_ptr(),
         ops.v.data_ptr(), ops.w.data_ptr(), ops.pt_ptr.data_ptr(),
-        ops.cam_ptr.data_ptr(), ops.cam_perm.data_ptr(), robust_scale.data_ptr(), M,
+        ops.tile_pt.data_ptr(), ops.tile_pt.shape[0] - 1, HCPT_X_TILE,
+        ops.cam_perm.data_ptr(), ops.cam_pt.data_ptr(), ops.u_cam.data_ptr(),
+        ops.v_cam.data_ptr(), ops.w_cam.data_ptr(), ops.chunk_off.data_ptr(), n_chunks,
+        ops.chunk_ptr.data_ptr(), robust_scale.data_ptr(), M, partial.data_ptr(),
         b_rows.data_ptr(), b_cam.data_ptr(), Hcc.data_ptr(), g_c.data_ptr(),
         hpp6.data_ptr(), g_p.data_ptr(), _stream(dev),
     )
@@ -290,7 +313,10 @@ def build_eqs(ops: GroupedOps, ctab, X3, robust_scale, *, cp, model, robust,
     g_p, B_cm=None)``, and the coupling rows for the CG products in
     ``ops.rows_dtype`` in both orders: ``(eqs, b_rows, b_cam)``, ``b_rows
     [3*CP, M]`` point-sorted and ``b_cam [3*CP, M]`` camera-sorted
-    (``b_cam[:, j] == b_rows[:, cam_perm[j]]`` bit for bit)."""
+    (``b_cam[:, j] == b_rows[:, cam_perm[j]]`` bit for bit).  The kernel's
+    point pass runs one thread per observation over the tiles of
+    ``ops.tile_pt``; its camera pass one block per chunk of
+    ``ops.chunk_off``, reading the camera-sorted measurements."""
     projection._check_model(model)
     robust_mod._check(robust)
     if not _route(X3):
@@ -478,10 +504,7 @@ def hcp_w(ops: GroupedOps, w3, n_cameras, *, cp):
     if n_cameras != C:
         raise ValueError(f"n_cameras={n_cameras}, but the layout has {C} cameras")
     _check_ops(ops, dev)
-    if ops.b_cam is None:
-        raise ValueError("ops.b_cam is not built: the hcp_w kernel reads the camera-sorted "
-                         "rows that build_eqs returns (GroupedOps.replace(b_cam=...))")
-    b = ops.b_cam
+    b = _b_cam(ops, "hcp_w")
     bf16 = _check_rows("b_cam", b, cp, M, dev)
     _check("hcp_w input", w3, torch.float32, (3, P), dev)
     n_chunks = ops.chunk_off.shape[0] - 1
@@ -499,7 +522,9 @@ def hcp_w(ops: GroupedOps, w3, n_cameras, *, cp):
 def precond_diag(ops: GroupedOps, hinv6, n_cameras, *, cp):
     """Block-Jacobi correction (K_H; JAX ``precond_diag_grouped``):
     ``D[c] = sum_{m of c} B_m Hinv[pt(m)] B_m^T`` with ``hinv6 [6, P]``;
-    returns ``D [C, CP, CP]``, symmetric."""
+    returns ``D [C, CP, CP]``, symmetric.  The kernel reads the
+    camera-sorted ``ops.b_cam`` in order, as :func:`hcp_w` does; without
+    it, it raises."""
     if not _route(hinv6):
         return precond_diag_plain(ops, hinv6, n_cameras, cp=cp)
     dev = hinv6.device
@@ -507,14 +532,19 @@ def precond_diag(ops: GroupedOps, hinv6, n_cameras, *, cp):
     if n_cameras != C:
         raise ValueError(f"n_cameras={n_cameras}, but the layout has {C} cameras")
     _check_ops(ops, dev)
-    b = _rows(ops)
-    bf16 = _check_rows("b_rows", b, cp, M, dev)
+    b = _b_cam(ops, "precond_diag")
+    bf16 = _check_rows("b_cam", b, cp, M, dev)
     _check("precond_diag input", hinv6, torch.float32, (6, P), dev)
+    n_chunks = ops.chunk_off.shape[0] - 1
+    # Scratch: Hinv point-major, one 32-byte sector a point, and the
+    # per-chunk sums.
+    hinv_pt = torch.empty((P, 8), dtype=torch.float32, device=dev)
+    partial = torch.empty((cp * (cp + 1) // 2, n_chunks), dtype=torch.float32, device=dev)
     D = torch.empty((C, cp, cp), dtype=torch.float32, device=dev)
     err = _lib().pysfm_precond_diag(
-        cp, bf16, b.data_ptr(), hinv6.data_ptr(), P, ops.obs_pt.data_ptr(),
-        ops.cam_ptr.data_ptr(), ops.cam_perm.data_ptr(), C, M, D.data_ptr(),
-        _stream(dev),
+        cp, bf16, b.data_ptr(), hinv6.data_ptr(), P, hinv_pt.data_ptr(),
+        ops.cam_pt.data_ptr(), ops.chunk_off.data_ptr(), n_chunks, ops.chunk_ptr.data_ptr(),
+        C, M, partial.data_ptr(), D.data_ptr(), _stream(dev),
     )
     _launched("precond_diag", err)
     return D

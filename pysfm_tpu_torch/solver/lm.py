@@ -254,14 +254,18 @@ def _solve_std(
 def make_grouped_ops(cmp: cm.CMProblem, rows_dtype=None) -> spmv.GroupedOps:
     """The kernel operands of a CMProblem (once per problem): CSR offsets of
     each point's observations, the observations sorted by camera, the plans
-    of the two CG products, and the measurements, on the problem's device.
-    Pass the result to :func:`solve` / :func:`solve_cm` as ``gops``.
+    of the kernels, and the measurements in both orders, on the problem's
+    device.  Pass the result to :func:`solve` / :func:`solve_cm` as ``gops``.
 
-    ``rows_dtype`` is the storage type of the per-iteration coupling rows
-    (default: the problem's dtype).  Each linearization stores them twice,
-    ``b_rows`` point-sorted and ``b_cam`` camera-sorted, ``2 * 3*CP*M``
-    elements: 720 MB at Venice (M ~ 5M, CP = 6) in f32.  The loop drops a
-    linearization before it builds the next, so one pair is live at a time.
+    Memory: besides the problem's own arrays, the static layout holds
+    ``cam_perm``, ``cam_pt`` and the camera-sorted u, v, w, 20 B an
+    observation (100 MB at Venice, M ~ 5M; u, v, w 60 MB).  ``rows_dtype`` is
+    the storage type of the per-iteration coupling rows (default: the
+    problem's dtype).  Each linearization stores them twice, ``b_rows``
+    point-sorted and ``b_cam`` camera-sorted, ``2 * 3*CP*M`` elements: 720
+    MB at Venice (CP = 6) in f32.  The loop drops a linearization before it
+    builds the next, so one pair is live at a time.  K_H's scratch (Hinv
+    point-major, 32 B a point) lives for one call.
     ``torch.bfloat16`` halves the rows' memory and the bytes every CG
     product streams; all kernel arithmetic stays f32, so the CG operator is
     a fixed bf16-rounded S whose ~4e-3 relative rounding sits inside a

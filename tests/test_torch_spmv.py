@@ -134,21 +134,63 @@ def _plain_products_match_jax_f64(obs_cam, obs_pt, B, x, w3, C, P):
     return u, y
 
 
+def _precond_diag_matches_jax_f64(obs_cam, obs_pt, B, hpp6, C, P, lam=1e-3):
+    """The f64 ``precond_diag_plain`` against the segment-sum diagonal of
+    the JAX package's ``pcg.build_pcg_system`` (its ``D_blk`` is
+    ``sym(Hcc_aug - D)``; here Hcc = 0) to 1e-9; returns D."""
+    cp = B.shape[0] // 3
+    jeqs = jscale.ScaleEqs(Hcc=jnp.zeros((C, cp, cp)), g_c=jnp.zeros((C, cp)),
+                           hpp6=jnp.asarray(hpp6), g_p=jnp.zeros((3, P)), B_cm=jnp.asarray(B))
+    jsys = jpcg.build_pcg_system(jeqs, jnp.float64(lam), jnp.asarray(obs_cam),
+                                 jnp.asarray(obs_pt), keep_D=True)
+    hinv6 = tscale.sym6_inv(tscale.augment6(torch.from_numpy(hpp6), lam))
+    D = spmv.precond_diag(_port_ops(obs_cam, obs_pt, B, C, P), hinv6, C, cp=cp).numpy()
+    np.testing.assert_allclose(np.asarray(jsys.Hcc_aug) - 0.5 * (D + D.transpose(0, 2, 1)),
+                               np.asarray(jsys.D_blk), rtol=1e-9, atol=1e-9)
+    return D
+
+
 @pytest.mark.parametrize("kind", ["empty_and_long_cameras", "point_seen_by_every_camera"])
 def test_plain_products_on_plan_edges_match_jax(kind):
     """The same f64 check on the edge scenes of the CUDA kernels' plans
-    (``synthetic.plan_edge_incidence``): an empty camera's y is 0, as is an
-    unobserved point's u.  No interpret-mode call."""
+    (``synthetic.plan_edge_incidence``), and K_H's plain version against
+    the JAX package's segment-sum diagonal there: an empty camera's y and D
+    are 0, as is an unobserved point's u.  No interpret-mode call."""
     obs_cam, obs_pt, C, P = tsyn.plan_edge_incidence(kind)
     cp = 9
     rng = np.random.default_rng(3)
     B = rng.standard_normal((3 * cp, obs_cam.shape[0]))
     u, y = _plain_products_match_jax_f64(obs_cam, obs_pt, B, rng.standard_normal((cp, C)),
                                          rng.standard_normal((3, P)), C, P)
+    A = rng.standard_normal((P, 3, 3))
+    H = A @ A.transpose(0, 2, 1) + np.eye(3)
+    hpp6 = np.stack([H[:, 0, 0], H[:, 1, 0], H[:, 1, 1], H[:, 2, 0], H[:, 2, 1], H[:, 2, 2]])
+    D = _precond_diag_matches_jax_f64(obs_cam, obs_pt, B, hpp6, C, P)
     seen_c = np.bincount(obs_cam, minlength=C) > 0
     seen_p = np.bincount(obs_pt, minlength=P) > 0
     assert (~seen_c).any() or (~seen_p).any()
     assert (y[:, ~seen_c] == 0).all() and (u[:, ~seen_p] == 0).all()
+    assert (D[~seen_c] == 0).all() and (np.abs(D[seen_c]).max(axis=(1, 2)) > 0).all()
+
+
+@pytest.mark.parametrize("model", ["pose", "pose_k", "bal"])
+@pytest.mark.parametrize("kind", ["empty_and_long_cameras", "point_seen_by_every_camera"])
+def test_build_eqs_plain_on_plan_edges_matches_jax_f64(kind, model):
+    """K_E's plain version on a scene built on the plans' edge incidences
+    (``synthetic.plan_edge_scene``: empty cameras, cameras with more than one
+    chunk, a point seen by every camera, an unobserved point) against the
+    JAX package's ``build_normal_equations_scale_cm`` in f64."""
+    tp = tsyn.plan_edge_scene(kind, camera_model=model, dtype=np.float64, device="cpu")
+    jp = jcm.CMProblem(**{k: jnp.asarray(getattr(tp, k).numpy()) for k in tcm.FIELDS},
+                       camera_model=model, robust=tp.robust)
+    je = jscale.build_normal_equations_scale_cm(jp, 0)
+    te, b_t, b_c = _port_build(tp, make_grouped_ops(tp))
+    for name in ("Hcc", "g_c", "hpp6", "g_p"):
+        np.testing.assert_allclose(getattr(te, name).numpy(), np.asarray(getattr(je, name)),
+                                   **F64, err_msg=name)
+    np.testing.assert_allclose(b_t.numpy(), np.asarray(je.B_cm), **F64)
+    empty = np.bincount(tp.obs_cam.numpy(), minlength=tp.n_cameras) == 0
+    assert (te.Hcc.numpy()[empty] == 0).all() and (te.g_c.numpy()[empty] == 0).all()
 
 
 def _bal_problems(dtype, model="pose", robust="huber", outlier_frac=0.0):

@@ -35,6 +35,23 @@ def _ops(obs_cam, obs_pt, C, P, dtype=torch.float64):
 
 
 @pytest.mark.parametrize("kind", KINDS)
+def test_measurements_in_camera_order(kind):
+    """K_E's camera pass reads u, v, w camera-sorted: ``u_cam`` is exactly
+    ``u[cam_perm]`` (and so on), built once with the layout."""
+    obs_cam, obs_pt, C, P = _incidence(kind)
+    M = obs_cam.shape[0]
+    rng = np.random.default_rng(1)
+    u, v, w = (torch.from_numpy(rng.standard_normal(M).astype(np.float32)) for _ in range(3))
+    ops = spmv.grouped_ops(torch.from_numpy(obs_cam), torch.from_numpy(obs_pt), C, P,
+                           u, v, w, torch.float32)
+    perm = ops.cam_perm.long()
+    for name, ref in (("u_cam", u), ("v_cam", v), ("w_cam", w)):
+        got = getattr(ops, name)
+        assert got.dtype == torch.float32 and got.shape == (M,)
+        assert torch.equal(got, ref[perm]), name
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_cam_pt_is_obs_pt_in_camera_order(kind):
     obs_cam, obs_pt, C, P = _incidence(kind)
     ops = _ops(obs_cam, obs_pt, C, P)
@@ -126,17 +143,22 @@ def test_replace_carries_b_cam(change):
         new = it.replace(rows_dtype=torch.float32)
         assert new.b_rows is it.b_rows and new.b_cam is it.b_cam
     assert new.tile_pt is ops.tile_pt and new.chunk_off is ops.chunk_off
+    assert all(getattr(new, k) is getattr(ops, k) for k in ("u_cam", "v_cam", "w_cam"))
 
 
 def test_lm_loop_hands_both_row_copies_to_the_products(monkeypatch):
     """Every product of a pcg solve with kernel operands (rebuilds and
-    reused linearizations alike) sees ``b_cam == b_rows[:, cam_perm]``."""
-    seen = []
-    for name in ("hcp_w", "hcpT_x", "precond_diag"):
+    reused linearizations alike) sees ``b_cam == b_rows[:, cam_perm]``;
+    ``hcp_w`` and ``precond_diag``, whose kernels read ``b_cam`` alone,
+    receive it on every call."""
+    seen, calls = [], dict.fromkeys(("hcp_w", "hcpT_x", "precond_diag"), 0)
+    for name in calls:
         fn = getattr(spmv, name)
 
-        def checked(ops, *args, _fn=fn, **kwargs):
+        def checked(ops, *args, _fn=fn, _name=name, **kwargs):
+            assert ops.b_cam is not None and ops.b_cam.shape == ops.b_rows.shape, _name
             seen.append(torch.equal(ops.b_cam, ops.b_rows[:, ops.cam_perm.long()]))
+            calls[_name] += 1
             return _fn(ops, *args, **kwargs)
 
         monkeypatch.setattr(spmv, name, checked)
@@ -148,4 +170,5 @@ def test_lm_loop_hands_both_row_copies_to_the_products(monkeypatch):
     cfg = LMConfig(max_iters=8, solver="pcg", cg_iters=10, cg_tol=1e-2, tol_grad=0.0,
                    tol_cost_rel=0.0, tol_step=0.0)
     solve(cmp, cfg, gops=make_grouped_ops(cmp))
-    assert seen and all(seen)
+    assert seen and all(seen) and all(calls.values())
+    assert calls["precond_diag"] == cfg.max_iters
