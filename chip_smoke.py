@@ -11,7 +11,11 @@ Phases (any failure raises and the script exits non-zero):
 3. [kernel] the projection kernel against its plain PyTorch version: every
    camera model x robust kernel on a small scene with a ragged observation
    count, and the dense path's shape (50 cameras, 10k points, ~164k
-   observations);
+   observations), where each of its two branches (4 observations a thread
+   in vectors, one a thread) is held to the plain version and bitwise to
+   itself over two launches, the agreement between the branches is
+   counted, and both are timed beside the empty kernel (``csrc/floor.cu``:
+   the floor under every kernel time);
 4. [main] the dense path: ``solve()`` with the default ``LMConfig`` route
    (dense component-major Schur LM) for 30 iterations on the 50-camera /
    10k-point Huber scene, checked against the plain route on the card and,
@@ -25,8 +29,11 @@ Phases (any failure raises and the script exits non-zero):
    K_D ``payload_b``, K_C ``cost``, ``hcpT_x``, ``hcp_w``, K_H
    ``precond_diag``) against their plain versions on small ragged scenes
    (also one with C > 128): 3 camera models x 3 robust kernels, f32 and bf16
-   coupling rows; K_D against K_E's rows too, and K_E's camera-sorted rows
-   ``b_cam`` bitwise ``b_rows[:, cam_perm]``; then on the edge shapes of
+   coupling rows; K_D against K_E's rows too, K_E's camera-sorted rows
+   ``b_cam`` bitwise ``b_rows[:, cam_perm]``, K_C bitwise equal over two
+   launches with its ticket counter back at 0 after every call, and the
+   projection kernel on the same observations (both branches, as in
+   [kernel]); then on the edge shapes of
    the plans (``synthetic.PLAN_EDGES``: a camera without observations,
    cameras with more than one chunk, points longer than a tile, x too large
    for shared memory) for CP 6 / 9 / 10: the two CG products and K_H on
@@ -42,12 +49,17 @@ Phases (any failure raises and the script exits non-zero):
    logs, the final cost against the plain route on the card and, on a small
    scene, against the f64 host route; then a torch.profiler trace of one
    solve (device idle share) and each kernel's time at that shape (with
-   ``b_cam`` bitwise ``b_rows[:, cam_perm]`` there);
-8. [pcg venice] the same route on the Venice-scale synthetic BAL scene
+   ``b_cam`` bitwise ``b_rows[:, cam_perm]`` there), beside the bound and
+   the empty kernel's time;
+8. [proj venice] the projection kernel at the Venice scene's M (~5.0M
+   observations, std layout; no dense route solves at that size): each
+   branch against its plain version and bitwise against itself, the
+   agreement between the branches counted, and timed;
+9. [pcg venice] the same route on the Venice-scale synthetic BAL scene
    (1712 cameras, 1M points, ~5M observations): kernels against plain at
    that shape, their times, 18 LM iterations with bench/venice.py's
    settings, and a torch.profiler trace of them;
-9. [bal io] the BAL-file path of ``bench/io_scale.py`` (428 cameras, 125k
+10. [bal io] the BAL-file path of ``bench/io_scale.py`` (428 cameras, 125k
    points, camera model "bal"): ``save_bal``, ``load_bal`` onto the card
    through the native tokenizer, a segmented pcg solve with the kernels,
    and a checkpoint at the half whose resumed cost log must equal the tail
@@ -58,7 +70,9 @@ launched 0 times.
 
 The second-to-last lines are the card's ``nvidia-smi`` name and power
 limit and one JSON object describing each kernel (times at the dense and
-headline shapes); the last line is ``{"ok": true, "device": {...}}``.
+headline shapes, and under "venice" at the Venice scene's M, each beside its
+bound and the empty kernel's time); the last line is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device, or without the ``pysfm_tpu_torch`` package beside
 this script, it exits non-zero and prints no result.  Imports nothing of
 JAX.
@@ -160,9 +174,10 @@ def phase_env() -> str:
     return smi
 
 
-# Mangled template arguments of the pcg main path's instantiations: the
-# pose model (CP = 6), the Huber kernel, f32 rows.
-MAIN_PATH_ARGS = ("ILi0ELi1EfE", "ILi6EfE")
+# Mangled template arguments of the main paths' instantiations: the pose
+# model (CP = 6), the Huber kernel, f32 rows; the projection kernel with 4
+# observations a thread.
+MAIN_PATH_ARGS = ("ILi0ELi1EfE", "ILi6EfE", "ILi0ELi1EE", "ILi0ELi1ELi4EE")
 
 
 def ptxas_registers(log: str) -> dict:
@@ -180,11 +195,26 @@ def ptxas_registers(log: str) -> dict:
     return regs
 
 
+def ptxas_spills(log: str) -> list:
+    """ptxas -v: the kernel instantiations (name, mangled template
+    arguments) whose spill stores are not 0."""
+    spills, key = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5pysfm(\d+)(\w+)'", line)
+        if m:
+            key = (m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):int(m.group(1)) + 24])
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and key and m.group(1) != "0":
+            spills.append(key)
+    return sorted(set(spills))
+
+
 def main_path_registers(log: str) -> dict:
-    """Registers a thread of K_E's two passes and K_H's first pass as the
-    pcg main path instantiates them."""
+    """Registers a thread of K_E's two passes, K_H's first pass, K_C and the
+    projection kernel as the main paths instantiate them."""
     return {name: r for (name, args), r in sorted(ptxas_registers(log).items())
-            if name.startswith(("eqs_", "precond_")) and args.startswith(MAIN_PATH_ARGS)}
+            if name.startswith(("eqs_", "precond_", "cost_", "proj_"))
+            and args.startswith(MAIN_PATH_ARGS)}
 
 
 def phase_build() -> float:
@@ -193,14 +223,14 @@ def phase_build() -> float:
     info = _build.build()
     _build.library()
     regs = sorted({int(n) for n in re.findall(r"Used (\d+) registers", info.log)})
-    spills = len([n for n in re.findall(r"(\d+) bytes spill stores", info.log) if n != "0"])
+    spills = ptxas_spills(info.log)
     by_kernel = {}
     for (name, _), r in ptxas_registers(info.log).items():
         by_kernel.setdefault(name, set()).add(r)
     print(f"[build] {info.path.name} built={info.built} nvcc {info.seconds:.2f} s; "
-          f"registers/thread {regs}, kernels with spills: {spills}; by kernel "
+          f"registers/thread {regs}, kernels with spills: {len(spills)} {spills}; by kernel "
           + ", ".join(f"{k} {min(v)}-{max(v)}" for k, v in sorted(by_kernel.items()))
-          + f"; pcg main path (pose, Huber, f32 rows): {main_path_registers(info.log)}")
+          + f"; main paths (pose, Huber, f32 rows): {main_path_registers(info.log)}")
     return info.seconds
 
 
@@ -223,7 +253,7 @@ def _kernel_vs_plain(p):
     torch.cuda.synchronize()
     if proj.LAUNCHES != before + 1:
         raise AssertionError("kernel wrapper did not count exactly one launch")
-    refs = proj.proj_cm_plain(p.camera_model, p.robust, *proj._problem_args(p))
+    refs = proj._plain(p.camera_model, p.robust, *proj._problem_args(p))
     for a, b in zip(outs, refs):
         if a.shape != b.shape:
             raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -248,7 +278,8 @@ def phase_kernel_small() -> None:
             worst = max(worst, err)
         # The std-layout wrapper (JAX signature: gathered operands).
         p = sc.problem
-        R, t, intr, X, obs_cam, obs_pt, uv, w, free, scale = proj._problem_args(p)
+        R, t, intr, X, obs_cam, obs_pt, uv, w, fixed, scale = proj._problem_args(p)
+        free = torch.logical_not(fixed).to(uv.dtype)
         outs = proj.residuals_jacobians_weights(
             model, p.robust, R[obs_cam], t[obs_cam], intr[obs_cam], X[obs_pt],
             uv, w, free[obs_cam], scale,
@@ -305,6 +336,20 @@ def _device_ms(fn, n=20) -> float:
     return statistics.median(times)
 
 
+def noop_call():
+    """The empty kernel (``csrc/floor.cu``) as a call for :func:`_device_ms`:
+    its time is the floor under every kernel time here."""
+    from pysfm_tpu_torch.solver.kernels import _build
+
+    lib = _build.library()
+
+    def call():
+        err = lib.pysfm_noop(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"pysfm_noop launch failed: cudaError_t {err}")
+    return call
+
+
 def _host_ms(fn, n=20) -> float:
     """Median wall time of one call ended by a synchronize (host included)."""
     times = []
@@ -324,25 +369,41 @@ def phase_kernel_main(p, smi: str) -> dict:
     if not ok:
         raise AssertionError(f"main-path shape: kernel disagrees, max err {err}")
     args = proj._problem_args(p)
+    _, vec, same = _proj_branches("main-path shape", p.camera_model, p.robust, args)
+    if not vec:
+        raise AssertionError(f"main-path shape M={p.n_obs}: the vector branch did not run")
+    ms_v = [_device_ms(lambda v=v: proj._launch_cm(p.camera_model, p.robust, *args, vec=v))
+            for v in (True, False, True, False)]
+    print(f"[kernel] main-path shape: projection kernel, 4 observations a thread in vectors "
+          f"{ms_v[0]:.4f}, {ms_v[2]:.4f} ms; one a thread {ms_v[1]:.4f}, {ms_v[3]:.4f} ms "
+          f"(each within bound of plain; same bits: {same}) | {smi}")
 
     def kernel():
         return proj.residuals_and_jacobians_cm(p)
 
     def plain():
-        return proj.proj_cm_plain(p.camera_model, p.robust, *args)
+        return proj._plain(p.camera_model, p.robust, *args)
 
+    floor_ms = _device_ms(noop_call())
     ms, plain_ms = _device_ms(kernel), _device_ms(plain)
     call_ms, plain_call_ms = _host_ms(kernel), _host_ms(plain)
-    C, P, M, cp = p.n_cameras, p.n_points, p.n_obs, p.cam_dof
-    nbytes = 4 * ((13 + p.intr.shape[1]) * C + 3 * P + 5 * M + 1      # inputs
-                  + (2 + 2 * cp + 6 + 1) * M)                         # outputs
-    bound_ms, bound_by = _bound(nbytes, LINEARIZE_OPS * M)
+    bound_ms, bound_by = _bound(*_proj_cost(p))
     print(f"[kernel] main-path shape M={p.n_obs}: max abs err {err:.3e}; device time "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, CUDA events); "
           f"call with host overhead kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; "
-          f"bound {bound_ms:.4f} ms ({bound_by}) | {smi}")
+          f"bound {bound_ms:.4f} ms ({bound_by}), empty-kernel floor {floor_ms:.4f} ms | {smi}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, floor_ms=floor_ms)
+
+
+def _proj_cost(p):
+    """(bytes moved, f32 operations) of one projection-kernel call on
+    BundleProblem p: the tables and 20 B an observation in once (ids, uv,
+    w), 4 B an output value out once."""
+    C, P, M, cp = p.n_cameras, p.n_points, p.n_obs, p.cam_dof
+    nbytes = 4 * ((13 + p.intr.shape[1]) * C + 3 * P + 5 * M + 1      # inputs
+                  + (2 + 2 * cp + 6 + 1) * M)                         # outputs
+    return nbytes, LINEARIZE_OPS * M
 
 
 def _timed(fn):
@@ -649,20 +710,103 @@ def _b_cam_exact(label, ops, b_rows, b_cam) -> None:
         raise AssertionError(f"{label}: build_eqs b_cam != b_rows[:, cam_perm] bitwise")
 
 
+def _cost_checks(label, p, ops):
+    """K_C against the plain version, two launches bitwise equal, the
+    ticket counter back at 0 after every call.  Returns the abs error."""
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    (ops_, ctab, X3, scale), _ = _eqs_args(p, ops)
+    ticket = spmv.cost_ticket(X3.device, torch.cuda.current_stream().cuda_stream)
+    ref = spmv.cost_plain(ops_, ctab, X3, scale, model=p.camera_model, robust=p.robust)
+    outs = []
+    for _ in range(2):
+        outs.append(spmv.cost(ops_, ctab, X3, scale, model=p.camera_model, robust=p.robust))
+        torch.cuda.synchronize()
+        if int(ticket.item()) != 0:
+            raise AssertionError(f"{label}: cost ticket {int(ticket.item())} after a call")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{label}: cost differs between launches")
+    err, ok = _max_err(outs[:1], [ref])
+    if not ok:
+        raise AssertionError(f"{label}: cost {float(outs[0])} vs plain {float(ref)}")
+    return err
+
+
+def _proj_args_cm(p):
+    """The projection kernel's operands from a CMProblem (the same
+    observations in the std layout's tables)."""
+    uv = torch.stack([p.u, p.v], dim=1).contiguous()
+    return (p.R, p.t, p.intr, p.X3.T.contiguous(), p.obs_cam, p.obs_pt, uv, p.obs_w,
+            p.cam_fixed, p.robust_scale)
+
+
+def _proj_branches(label, model, robust, args):
+    """The projection kernel with 4 observations a thread in vectors and
+    with one a thread, on the same operands: each against the plain version
+    and two launches of each bitwise equal (the vector branch is refused
+    where M % 4 != 0).  The two branches compute each observation with the
+    same code, but the compiler may contract other multiply-adds in the two
+    instantiations, so they are held to the plain version each and not to
+    each other.  Returns (worst abs error, whether the vector branch ran,
+    whether the two branches gave the same bits)."""
+    from pysfm_tpu_torch.solver.kernels import proj
+
+    ref = proj._plain(model, robust, *args)
+    outs, worst = {}, 0.0
+    for vec in (True, False):
+        try:
+            a = proj._launch_cm(model, robust, *args, vec=vec)
+        except RuntimeError:
+            if vec and args[6].shape[0] % 4:
+                continue
+            raise
+        b = proj._launch_cm(model, robust, *args, vec=vec)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{label}: projection kernel (vec={vec}) differs between "
+                                 "launches")
+        err, ok = _max_err(a, ref)
+        if not ok:
+            raise AssertionError(f"{label}: projection kernel (vec={vec}) disagrees with "
+                                 f"plain, max err {err}")
+        worst = max(worst, err)
+        outs[vec] = a
+    same = True in outs and all(torch.equal(x, y) for x, y in zip(outs[True], outs[False]))
+    return worst, True in outs, same
+
+
+def _vec_note(runs) -> str:
+    """How many scenes ran the projection kernel's vector branch, and in how
+    many of those the two branches gave the same bits."""
+    ran = [same for vec, same in runs if vec]
+    return (f"vector branch on {len(ran)} of {len(runs)} scenes, same bits as one a thread "
+            f"in {sum(ran)}")
+
+
+def _proj_vs_plain_cm(label, p):
+    """The projection kernel on a CMProblem's observations, in both branches
+    (``_proj_branches``); returns (worst abs error, whether the vector
+    branch ran, whether the branches gave the same bits)."""
+    return _proj_branches(label, p.camera_model, p.robust, _proj_args_cm(p))
+
+
 def _kernels_vs_plain(p, ops, f32_rows=None):
-    """All six kernels against their plain versions on problem p, K_D
-    against K_E, and K_E's b_cam against its b_rows; returns ({name: worst
-    abs error}, K_D == K_E bitwise).  ``f32_rows`` ({kernel: its rows in
-    f32}, for bf16 ``ops``) holds the bf16 rows of K_E and K_D to those
-    rounded, as ``_check_pair`` says."""
+    """All six kernels against their plain versions on problem p (K_C also
+    by ``_cost_checks``), K_D against K_E, and K_E's b_cam
+    against its b_rows; returns ({name: worst abs error}, K_D == K_E
+    bitwise).  ``f32_rows`` ({kernel:
+    its rows in f32}, for bf16 ``ops``) holds the bf16 rows of K_E and K_D
+    to those rounded, as ``_check_pair`` says."""
     from pysfm_tpu_torch.solver.kernels import spmv
 
     bf16 = ops.rows_dtype == torch.bfloat16
+    label = f"C={p.n_cameras} {p.camera_model}/{p.robust}"
     args, kw = _eqs_args(p, ops)
     eqs, b_rows, b_cam = spmv.build_eqs(*args, **kw)
-    _b_cam_exact(f"C={p.n_cameras} {p.camera_model}/{p.robust}", ops, b_rows, b_cam)
+    _b_cam_exact(label, ops, b_rows, b_cam)
     errs = {name: _check_pair(name, kernel, plain, bf16, (f32_rows or {}).get(name))
             for name, (kernel, plain) in _spmv_pairs(p, ops, eqs, b_rows, b_cam).items()}
+    errs["cost"] = max(errs["cost"], _cost_checks(label, p, ops))
     return errs, _kd_vs_ke(p, ops, b_rows)
 
 
@@ -674,6 +818,7 @@ def phase_spmv_small() -> None:
     worst = dict.fromkeys(SPMV_KERNELS, 0.0)
     shapes = set()
     kd_bitwise = []
+    proj_worst, proj_vec = 0.0, []
     for model in ("pose", "pose_k", "bal"):
         for robust in ("gaussian", "huber", "cauchy"):
             scenes = [(5, 101)] + ([(160, 700)] if robust == "huber" else [])
@@ -684,6 +829,9 @@ def phase_spmv_small() -> None:
                     seed=3, dtype=np.float32, with_truth=False, layout="cm",
                 ).problem
                 shapes.add((C, P, p.n_obs))
+                err, vec, same = _proj_vs_plain_cm(f"C={C} {model}/{robust}", p)
+                proj_worst = max(proj_worst, err)
+                proj_vec.append((vec, same))
                 for rows in (torch.float32, torch.bfloat16):
                     errs, same = _kernels_vs_plain(p, make_grouped_ops(p, rows_dtype=rows))
                     worst = {k: max(worst[k], errs[k]) for k in worst}
@@ -729,7 +877,9 @@ def phase_spmv_small() -> None:
           f"{sorted(shapes)}: kernel == plain, max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (bound {KERNEL_TOL} x (max|ref|+1); bf16 rows within one ulp); two launches "
-          f"bitwise equal; f64 refused; hcp_w and precond_diag without b_cam refused; "
+          f"bitwise equal; cost's ticket back at 0 after every call; projection kernel on "
+          f"the same scenes == plain, max abs err {proj_worst:.3e} ({_vec_note(proj_vec)}); "
+          f"f64 refused; hcp_w and precond_diag without b_cam refused; "
           f"build_eqs b_cam == b_rows[:, cam_perm] bitwise in all {len(kd_bitwise)} cases; "
           f"payload_b (K_D) == "
           f"build_eqs (K_E) rows within bound, bitwise equal in {sum(kd_bitwise)} of "
@@ -816,9 +966,13 @@ def phase_spmv_edges() -> None:
     # inside the f32 bound; such entries are counted.
     eqs_worst = dict.fromkeys(SPMV_KERNELS, 0.0)
     kd_bitwise, beyond_ulp, n_rows = [], 0, 0
+    proj_worst, proj_vec = 0.0, []
     for kind in synthetic.PLAN_EDGES:
         for model in ("pose", "bal", "pose_k"):
             p = synthetic.plan_edge_scene(kind, camera_model=model, device="cuda")
+            err, vec, same = _proj_vs_plain_cm(f"{kind} {model}", p)
+            proj_worst = max(proj_worst, err)
+            proj_vec.append((vec, same))
             ops32 = make_grouped_ops(p)
             errs, same = _kernels_vs_plain(p, ops32)
             eqs_worst = {k: max(eqs_worst[k], errs[k]) for k in eqs_worst}
@@ -846,6 +1000,8 @@ def phase_spmv_edges() -> None:
     print("[spmv kernels] edge scenes (plan_edge_scene: the same observations, models pose / "
           "bal / pose_k, Huber), f32 and bf16 rows: kernel == plain, max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in eqs_worst.items())
+          + f" (cost's ticket back at 0); projection kernel on the same "
+          f"observations == plain, max abs err {proj_worst:.3e} ({_vec_note(proj_vec)})"
           + f"; bf16 rows of K_E and K_D == their f32 rows rounded, bitwise; K_E bf16 row "
           f"entries beyond one ulp of the plain version's: {beyond_ulp} of {n_rows}; build_eqs "
           f"b_cam == b_rows[:, cam_perm] bitwise in all {len(kd_bitwise)} cases; payload_b (K_D) "
@@ -945,6 +1101,11 @@ def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
             for sh in (True, False, True, False)]
     print(f"[{label}] hcpT_x device time, x in shared memory {ms_x[0]:.4f}, {ms_x[2]:.4f} ms; "
           f"x from global memory {ms_x[1]:.4f}, {ms_x[3]:.4f} ms | {smi}")
+    # K_C at this shape: two launches bitwise equal, the ticket back at 0.
+    cost_err = _cost_checks(label, p, ops)
+    floor_ms = _device_ms(noop_call(), n)
+    print(f"[{label}] cost: two launches bitwise equal, ticket back at 0, max abs err "
+          f"{cost_err:.3e}; empty-kernel floor {floor_ms:.4f} ms | {smi}")
     out = {}
     for name, (kernel, plain) in pairs.items():
         err = _check_pair(name, kernel, plain, False)
@@ -952,11 +1113,11 @@ def phase_spmv_timing(p, ops, label, smi, n=20) -> dict:
         lib_ms = _device_ms(library[name], n) if name in library else None
         bound_ms, bound_by = _bound(*_spmv_cost(name, p, ops, b_rows))
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms)
+                         bound_by=bound_by, library_ms=lib_ms, floor_ms=floor_ms)
         lib = "" if lib_ms is None else f", torch.sparse {lib_ms:.4f} ms"
         print(f"[{label}] {name} at C={p.n_cameras} P={p.n_points} M={p.n_obs}: max abs err "
               f"{err:.3e}; device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}; "
-              f"bound {bound_ms:.4f} ms ({bound_by}) | {smi}")
+              f"bound {bound_ms:.4f} ms ({bound_by}), floor {floor_ms:.4f} ms | {smi}")
     return out
 
 
@@ -1100,7 +1261,7 @@ def phase_pcg_venice(smi) -> dict:
     t_layout = time.perf_counter() - t0
     print(f"[pcg venice] scene C={p.n_cameras} P={p.n_points} M={p.n_obs} built in "
           f"{t_scene:.3f} s, kernel layout (make_grouped_ops) in {t_layout:.3f} s")
-    phase_spmv_timing(p, gops, "pcg venice", smi, n=10)
+    stats = phase_spmv_timing(p, gops, "pcg venice", smi, n=10)
     cfg = LMConfig(max_iters=VENICE_ITERS, **NO_TOL, **PCG_VENICE)
     torch.cuda.reset_peak_memory_stats()
     st, secs, counts = _pcg_solve_counted(p, cfg, gops, "pcg venice")
@@ -1114,7 +1275,44 @@ def phase_pcg_venice(smi) -> dict:
     for name in SPMV_KERNELS:
         print(f"[pcg venice] {name}: {counts[name] / n:.2f} launches per LM iteration")
     phase_profile(p, cfg, gops, "pcg venice", smi)
-    return counts
+    return stats, counts
+
+
+def phase_proj_venice(smi) -> dict:
+    """The projection kernel at the Venice scene's M (the std layout of the
+    Venice-scale scene; no dense route solves at that size): against its
+    plain version, two launches bitwise equal, then its device time, the
+    plain version's, the bound and the floor."""
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver.kernels import proj
+
+    p = synthetic.make_bal_scene(**{**VENICE_SCENE, "layout": "std"}, device="cuda").problem
+    args = proj._problem_args(p)
+    err, vec, same = _proj_branches("proj venice", p.camera_model, p.robust, args)
+    if not vec:
+        raise AssertionError(f"proj venice M={p.n_obs}: the vector branch did not run")
+    ms_v = [_device_ms(lambda v=v: proj._launch_cm(p.camera_model, p.robust, *args, vec=v), 10)
+            for v in (True, False, True, False)]
+    print(f"[proj venice] 4 observations a thread in vectors {ms_v[0]:.4f}, {ms_v[2]:.4f} ms; "
+          f"one a thread {ms_v[1]:.4f}, {ms_v[3]:.4f} ms (each within bound of plain; same "
+          f"bits: {same}) | {smi}")
+
+    def kernel():
+        return proj.residuals_and_jacobians_cm(p)
+
+    def plain():
+        return proj._plain(p.camera_model, p.robust, *args)
+
+    floor_ms = _device_ms(noop_call(), 10)
+    ms, plain_ms = _device_ms(kernel, 10), _device_ms(plain, 10)
+    bound_ms, bound_by = _bound(*_proj_cost(p))
+    print(f"[proj venice] projection kernel at C={p.n_cameras} P={p.n_points} M={p.n_obs} "
+          f"(std layout, outputs {4 * (2 + 2 * p.cam_dof + 6 + 1) * p.n_obs / 1e6:.0f} MB): "
+          f"max abs err {err:.3e}; device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(median of 10); bound {bound_ms:.4f} ms ({bound_by}), floor {floor_ms:.4f} ms "
+          f"| {smi}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, floor_ms=floor_ms)
 
 
 def phase_bal_io(smi) -> dict:
@@ -1210,7 +1408,8 @@ def main() -> int:
     std = phase_std(p, smi)
     phase_spmv_small()
     pcg_stats, pcg_counts = phase_pcg_main(smi)
-    venice_counts = phase_pcg_venice(smi)
+    proj_venice = phase_proj_venice(smi)
+    venice_stats, venice_counts = phase_pcg_venice(smi)
     io_counts = phase_bal_io(smi)
 
     # Launches on each main path, each read just after the path ran with
@@ -1224,6 +1423,7 @@ def main() -> int:
         "launches": sum(proj_paths.values()),
         "launches_by_path": proj_paths,
         **kstats,
+        "venice": proj_venice,
     }]
     for name in SPMV_KERNELS:
         source, replaces = SPMV_SOURCE[name]
@@ -1233,8 +1433,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(paths.values()),
                         "launches_by_path": paths,
-                        **{k: st[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}})
+                        **st, "venice": venice_stats[name]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

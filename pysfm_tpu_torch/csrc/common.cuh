@@ -1,10 +1,14 @@
 // Helpers shared by the pcg route's kernels (eqs.cu, spmv.cu): the storage
-// type of the coupling rows, a deterministic block-wide sum, and the
-// fixed-order second pass of the per-chunk camera sums.
+// type of the coupling rows, a deterministic block-wide sum, the
+// fixed-order second pass of the per-chunk camera sums, and the device
+// limits behind a persistent grid.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,12 +42,12 @@ __device__ __forceinline__ void row_store(__nv_bfloat16* p, float x) {
 // and thread i < NV adds the warps' sums of value i in warp order.  No
 // atomics, so the result is the same bit for bit on every run.  Returns
 // the block total of value threadIdx.x to threads threadIdx.x < NV (0
-// elsewhere).  Every thread of the block calls it once; smem holds
-// kBlock / 32 * NV values.
-template <int NV, typename T>
+// elsewhere).  Every thread of the block (BLOCK threads) calls it once;
+// smem holds BLOCK / 32 * NV values.
+template <int NV, typename T, int BLOCK = kBlock>
 __device__ __forceinline__ T block_sum(const T (&acc)[NV], T* smem) {
-  constexpr int kWarps = kBlock / 32;
-  static_assert(NV <= kBlock, "more values than threads");
+  constexpr int kWarps = BLOCK / 32;
+  static_assert(NV <= BLOCK, "more values than threads");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -117,6 +121,28 @@ cudaError_t launch_camera_combine(const float* partial, int n_chunks, const int3
   camera_combine_kernel<CP><<<static_cast<int>((n + kBlock - 1) / kBlock), kBlock, 0, s>>>(
       partial, n_chunks, chunk_ptr, C, n_rows, S, g);
   return cudaGetLastError();
+}
+
+// The device's SM count and opt-in shared memory per block, read once per
+// device: the CG loop launches its kernels once per iteration, from the
+// host.
+inline cudaError_t device_limits(int dev, int& sms, int& optin) {
+  static std::mutex mu;
+  static std::map<int, std::pair<int, int>> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(dev);
+  if (it == cache.end()) {
+    int s = 0, o = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err != cudaSuccess) return err;
+    it = cache.emplace(dev, std::make_pair(s, o)).first;
+  }
+  sms = it->second.first;
+  optin = it->second.second;
+  return cudaSuccess;
 }
 
 }  // namespace pysfm

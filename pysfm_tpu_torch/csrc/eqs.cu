@@ -43,9 +43,15 @@
 // K_D writes b_rows alone: one thread per observation (grid-stride), the
 // same linearize call and row expression as K_E's passes.  No solve path
 // calls it, as in the JAX package.
-// K_C: one thread per observation (grid-stride), per-block partial sums in
-// double, then one block adds the partials in a fixed order.
-// No atomics anywhere: every output is the same bit for bit on every run.
+// K_C: one launch.  One block of 1024 threads per SM at most walks the
+// point-sorted observations (grid-stride), two an iteration with every
+// load issued first; ids, u, v, w and points are read in order, the camera
+// values from ctab (L2-resident); per-block sums in double.  The last
+// block to finish, found by an integer ticket, adds the partials in block
+// order and writes the result; it also sets the ticket back to 0.
+// No float atomics anywhere: every output is the same bit for bit on every
+// run.  K_C's ticket is an integer atomicAdd that only decides which block
+// adds the partials; the order of the sum is fixed, so its bits are too.
 //
 // Bound on the H100 SXM (3.35 TB/s): the function (JAX build_eqs_grouped)
 // reads ~24 B an observation (ids, u, v, w, the cam_perm entry) and writes
@@ -58,10 +64,12 @@
 // observation of camera-sorted inputs.  The LM loop frees a linearization
 // before it builds the next, so one pair of copies is live.  K_D reads 20 B
 // an observation and writes one copy of the rows: ~0.46 GB, ~0.14 ms.  K_C
-// reads ~24 B an observation, ~0.04 ms there.  Both K_E passes hold a
-// linearization per thread (the camera pass also its tri(CP) + CP sums);
-// registers and spills are in ptxas's report, which chip_smoke.py prints,
-// and measured times in PERF.md.
+// reads 20 B an observation and the tables once, ~0.034 ms there; its
+// former design (blocks of 256 threads, one observation a thread an
+// iteration, a second launch for the partials) took 2.2x that.  Both K_E
+// passes hold a linearization per thread (the camera pass also its tri(CP)
+// + CP sums); registers and spills are in ptxas's report, which
+// chip_smoke.py prints, and measured times in PERF.md.
 //
 // C entries, called through ctypes: they launch on the given stream,
 // allocate nothing, do not synchronize, and return cudaGetLastError().
@@ -278,46 +286,89 @@ payload_b_kernel(const float* __restrict__ ctab, int C,
   }
 }
 
+// K_C's block: one block per SM (at most), 1024 threads; each thread
+// takes kCostIlp observations an iteration, every load of all of them
+// started before any is computed.
+constexpr int kCostBlock = 1024;
+constexpr int kCostIlp = 2;
+
+// K_C in one launch: a grid-stride loop over the point-sorted
+// observations, whose ids, u, v, w and points (X3) are read in order and
+// whose camera values are read from ctab (load_cam, as K_E and K_D do),
+// kCostIlp of them an iteration with every load started before any is
+// computed; observation m0 + q * stride is the q-th of an iteration, so
+// each thread adds its terms in the order of a plain grid-stride loop.
+// Each block writes its double partial; the last block to finish (an
+// integer ticket) adds the partials in block order and writes the f32
+// result.
 template <int MODEL, int ROBUST>
-__global__ void __launch_bounds__(kBlock)
-cost_partial_kernel(const float* __restrict__ ctab, int C,
-                    const float* __restrict__ X3, int P,
-                    const int32_t* __restrict__ obs_cam,
-                    const int32_t* __restrict__ obs_pt,
-                    const float* __restrict__ u, const float* __restrict__ v,
-                    const float* __restrict__ w,
-                    const float* __restrict__ scale, int M,
-                    double* __restrict__ partial) {   // [gridDim.x]
-  __shared__ double smem[kBlock / 32];
+__global__ void __launch_bounds__(kCostBlock, 1)
+cost_kernel(const float* __restrict__ ctab, int C,
+            const float* __restrict__ X3, int P,
+            const int32_t* __restrict__ obs_cam,
+            const int32_t* __restrict__ obs_pt,
+            const float* __restrict__ u, const float* __restrict__ v,
+            const float* __restrict__ w,
+            const float* __restrict__ scale, int M,
+            double* __restrict__ partial,        // [gridDim.x]
+            unsigned int* __restrict__ ticket,   // 0 before and after
+            float* __restrict__ out) {
+  __shared__ double red[kCostBlock / 32];
+  __shared__ bool last;
   const size_t Ps = static_cast<size_t>(P);
   const float sc = __ldg(scale);
   double acc[1] = {0.0};
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlock;
-  for (int64_t m = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x; m < M;
-       m += stride) {
-    CamParams<MODEL> k;
-    load_cam<MODEL>(ctab, C, __ldg(obs_cam + m), k);
-    const int p = __ldg(obs_pt + m);
-    const float X[3] = {__ldg(X3 + p), __ldg(X3 + Ps + p), __ldg(X3 + 2 * Ps + p)};
-    // Only the residual of project_jac is used; the compiler drops the
-    // Jacobians of this inlined call.
-    ProjJac<MODEL> o;
-    project_jac<MODEL>(k.R, k.t, k.intr, X, __ldg(u + m), __ldg(v + m), o);
-    const float s = o.r[0] * o.r[0] + o.r[1] * o.r[1];
-    acc[0] += static_cast<double>(__ldg(w + m) * robust_rho<ROBUST>(s, sc));
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kCostBlock;
+  for (int64_t m0 = static_cast<int64_t>(blockIdx.x) * kCostBlock + threadIdx.x; m0 < M;
+       m0 += kCostIlp * stride) {
+    int cq[kCostIlp], pq[kCostIlp];
+    float uq[kCostIlp], vq[kCostIlp], wq[kCostIlp];
+#pragma unroll
+    for (int q = 0; q < kCostIlp; ++q) {
+      // Past M, observation m0 again (loaded, never added).
+      const int64_t m = m0 + q * stride < M ? m0 + q * stride : m0;
+      cq[q] = __ldg(obs_cam + m);
+      pq[q] = __ldg(obs_pt + m);
+      uq[q] = __ldg(u + m);
+      vq[q] = __ldg(v + m);
+      wq[q] = __ldg(w + m);
+    }
+    CamParams<MODEL> k[kCostIlp];
+    float X[kCostIlp][3];
+#pragma unroll
+    for (int q = 0; q < kCostIlp; ++q) {
+      load_cam<MODEL>(ctab, C, cq[q], k[q]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) X[q][i] = __ldg(X3 + i * Ps + pq[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kCostIlp; ++q) {
+      // Only the residual of project_jac is used; the compiler drops the
+      // Jacobians of this inlined call.
+      ProjJac<MODEL> o;
+      project_jac<MODEL>(k[q].R, k[q].t, k[q].intr, X[q], uq[q], vq[q], o);
+      const float s = o.r[0] * o.r[0] + o.r[1] * o.r[1];
+      if (m0 + q * stride < M) acc[0] += static_cast<double>(wq[q] * robust_rho<ROBUST>(s, sc));
+    }
   }
-  const double total = block_sum<1>(acc, smem);
-  if (threadIdx.x == 0) partial[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kBlock)
-cost_final_kernel(const double* __restrict__ partial, int n,
-                  float* __restrict__ out) {
-  __shared__ double smem[kBlock / 32];
-  double acc[1] = {0.0};
-  for (int i = threadIdx.x; i < n; i += kBlock) acc[0] += partial[i];
-  const double total = block_sum<1>(acc, smem);
-  if (threadIdx.x == 0) out[0] = static_cast<float>(0.5 * total);
+  const double total = block_sum<1, double, kCostBlock>(acc, red);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = total;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double part[1] = {0.0};
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kCostBlock) {
+    part[0] += __ldcg(partial + i);  // from L2: other SMs wrote them
+  }
+  const double sum = block_sum<1, double, kCostBlock>(part, red);
+  if (threadIdx.x == 0) {
+    out[0] = static_cast<float>(0.5 * sum);
+    *ticket = 0u;  // ready for the next launch on this stream
+  }
 }
 
 // The observation inputs of K_E, K_D and K_C.
@@ -430,23 +481,31 @@ bool payload_robust(int robust, const EqsArgs& a, int rows_bf16, void* b_rows,
   }
 }
 
+// K_C's launch: one block per SM at most, and at most n_partial blocks.
 template <int MODEL, int ROBUST>
-void launch_cost(const EqsArgs& a, double* partial, int n_blocks, float* out,
-                 cudaStream_t s) {
-  cost_partial_kernel<MODEL, ROBUST><<<n_blocks, kBlock, 0, s>>>(
-      a.ctab, a.C, a.X3, a.P, a.obs_cam, a.obs_pt, a.u, a.v, a.w, a.scale, a.M,
-      partial);
-  cost_final_kernel<<<1, kBlock, 0, s>>>(partial, n_blocks, out);
+cudaError_t launch_cost(const EqsArgs& a, double* partial, int n_partial,
+                        unsigned int* ticket, float* out, cudaStream_t s) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = device_limits(dev, sms, optin);
+  if (err != cudaSuccess) return err;
+  const int64_t need = (static_cast<int64_t>(a.M) + kCostBlock - 1) / kCostBlock;
+  int grid = static_cast<int>(need < sms ? need : sms);
+  if (grid > n_partial) grid = n_partial;
+  cost_kernel<MODEL, ROBUST><<<grid, kCostBlock, 0, s>>>(
+      a.ctab, a.C, a.X3, a.P, a.obs_cam, a.obs_pt, a.u, a.v, a.w, a.scale, a.M, partial,
+      ticket, out);
+  return cudaGetLastError();
 }
 
 template <int MODEL>
-bool cost_robust(int robust, const EqsArgs& a, double* partial, int n_blocks,
-                 float* out, cudaStream_t s) {
+cudaError_t cost_robust(int robust, const EqsArgs& a, double* partial, int n_partial,
+                        unsigned int* ticket, float* out, cudaStream_t s) {
   switch (robust) {
-    case ROBUST_GAUSSIAN: launch_cost<MODEL, ROBUST_GAUSSIAN>(a, partial, n_blocks, out, s); return true;
-    case ROBUST_HUBER:    launch_cost<MODEL, ROBUST_HUBER>(a, partial, n_blocks, out, s); return true;
-    case ROBUST_CAUCHY:   launch_cost<MODEL, ROBUST_CAUCHY>(a, partial, n_blocks, out, s); return true;
-    default: return false;
+    case ROBUST_GAUSSIAN: return launch_cost<MODEL, ROBUST_GAUSSIAN>(a, partial, n_partial, ticket, out, s);
+    case ROBUST_HUBER:    return launch_cost<MODEL, ROBUST_HUBER>(a, partial, n_partial, ticket, out, s);
+    case ROBUST_CAUCHY:   return launch_cost<MODEL, ROBUST_CAUCHY>(a, partial, n_partial, ticket, out, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -490,27 +549,27 @@ extern "C" cudaError_t pysfm_build_eqs(
 extern "C" cudaError_t pysfm_cost(
     int model, int robust, const void* ctab, int C, const void* X3, int P,
     const void* obs_cam, const void* obs_pt, const void* u, const void* v,
-    const void* w, const void* scale, int M, void* partial, int n_blocks,
+    const void* w, const void* scale, int M, void* partial, int n_partial, void* ticket,
     void* out, void* stream) {
   using namespace pysfm;
-  if (M <= 0 || P <= 0 || C <= 0 || n_blocks <= 0) return cudaErrorInvalidValue;
+  if (M <= 0 || P <= 0 || C <= 0 || n_partial <= 0) {
+    return cudaErrorInvalidValue;
+  }
   const EqsArgs a{
       static_cast<const float*>(ctab), C, static_cast<const float*>(X3), P,
       static_cast<const int32_t*>(obs_cam), static_cast<const int32_t*>(obs_pt),
       static_cast<const float*>(u), static_cast<const float*>(v),
       static_cast<const float*>(w), static_cast<const float*>(scale), M};
   double* part = static_cast<double*>(partial);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
   switch (model) {
-    case MODEL_POSE:   ok = cost_robust<MODEL_POSE>(robust, a, part, n_blocks, o, s); break;
-    case MODEL_POSE_K: ok = cost_robust<MODEL_POSE_K>(robust, a, part, n_blocks, o, s); break;
-    case MODEL_BAL:    ok = cost_robust<MODEL_BAL>(robust, a, part, n_blocks, o, s); break;
-    default: break;
+    case MODEL_POSE:   return cost_robust<MODEL_POSE>(robust, a, part, n_partial, tk, o, s);
+    case MODEL_POSE_K: return cost_robust<MODEL_POSE_K>(robust, a, part, n_partial, tk, o, s);
+    case MODEL_BAL:    return cost_robust<MODEL_BAL>(robust, a, part, n_partial, tk, o, s);
+    default:           return cudaErrorInvalidValue;
   }
-  if (!ok) return cudaErrorInvalidValue;
-  return cudaGetLastError();
 }
 
 extern "C" cudaError_t pysfm_payload_b(

@@ -339,27 +339,6 @@ struct HcptArgs {
   float* u;
 };
 
-// The device's SM count and opt-in shared memory per block, read once per
-// device: the CG loop launches hcpT_x once per iteration, from the host.
-cudaError_t device_limits(int dev, int& sms, int& optin) {
-  static std::mutex mu;
-  static std::map<int, std::pair<int, int>> cache;
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(dev);
-  if (it == cache.end()) {
-    int s = 0, o = 0;
-    cudaError_t err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
-    if (err != cudaSuccess) return err;
-    it = cache.emplace(dev, std::make_pair(s, o)).first;
-  }
-  sms = it->second.first;
-  optin = it->second.second;
-  return cudaSuccess;
-}
-
 // Lets `kernel` take `bytes` of dynamic shared memory on device `dev`
 // (needed above 48 KB).  The attribute only grows, and is set once per
 // device, kernel and size, not on every launch.

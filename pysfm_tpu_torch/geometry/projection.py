@@ -26,6 +26,16 @@ INTR_DIM = {"pose": 4, "pose_k": 4, "bal": 3}
 CAM_DOF = {"pose": 6, "pose_k": 10, "bal": 9}
 
 
+def pr(x: torch.Tensor) -> torch.Tensor:
+    """Dehomogenize: ``[..., n] -> [..., n-1]`` (the reference's ``pr()``)."""
+    return x[..., :-1] / x[..., -1:]
+
+
+def unpr(x: torch.Tensor) -> torch.Tensor:
+    """Homogenize: ``[..., n] -> [..., n+1]`` (the reference's ``unpr()``)."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
 def _cam_point(R, t, X):
     return xp.matvec(R, X) + t
 

@@ -36,11 +36,13 @@ _P = ctypes.c_void_p
 # Every C entry of the library: name -> (restype, argtypes).  Pointers and
 # the stream are c_void_p so ctypes passes them at full width.
 _SIGNATURES = {
+    # cudaError_t pysfm_noop(stream): the empty kernel (csrc/floor.cu)
+    "pysfm_noop": (ctypes.c_int, [_P]),
     # cudaError_t pysfm_proj_cm(model, robust, R, t, intr, X, obs_cam,
-    #     obs_pt, uv, w, free_c, scale, M, rt, Jct, Jpt, wt, stream)
+    #     obs_pt, uv, w, fixed, scale, M, vec_mode, rt, Jct, Jpt, wt, stream)
     "pysfm_proj_cm": (
         ctypes.c_int,
-        [ctypes.c_int, ctypes.c_int] + [_P] * 10 + [ctypes.c_int] + [_P] * 5,
+        [ctypes.c_int, ctypes.c_int] + [_P] * 10 + [ctypes.c_int] * 2 + [_P] * 5,
     ),
     # cudaError_t pysfm_build_eqs(model, robust, rows_bf16, ctab, C, X3, P,
     #     obs_cam, obs_pt, u, v, w, pt_ptr, tile_pt, n_tiles, tile_obs,
@@ -61,11 +63,11 @@ _SIGNATURES = {
         + [ctypes.c_int] + [_P] * 2,
     ),
     # cudaError_t pysfm_cost(model, robust, ctab, C, X3, P, obs_cam, obs_pt,
-    #     u, v, w, scale, M, partial, n_blocks, out, stream)
+    #     u, v, w, scale, M, partial, n_partial, ticket, out, stream)
     "pysfm_cost": (
         ctypes.c_int,
         [ctypes.c_int] * 2 + [_P, ctypes.c_int, _P, ctypes.c_int] + [_P] * 6
-        + [ctypes.c_int, _P, ctypes.c_int, _P, _P],
+        + [ctypes.c_int, _P, ctypes.c_int] + [_P] * 3,
     ),
     # cudaError_t pysfm_hcpT_x(cp, rows_bf16, b_rows, x, C, obs_cam, pt_ptr,
     #     P, tile_pt, n_tiles, tile_obs, M, x_mode, u, stream)

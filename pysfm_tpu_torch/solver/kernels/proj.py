@@ -21,7 +21,7 @@ kernel with identity indices.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,9 +67,23 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_cm(model, robust, R, t, intr, X, obs_cam, obs_pt, uv, w, free,
-               scale) -> Outputs:
-    """Launch the CUDA kernel on the current stream of the tensors' device."""
+def _plain(model, robust, R, t, intr, X, obs_cam, obs_pt, uv, w, cam_fixed,
+           scale) -> Outputs:
+    """:func:`proj_cm_plain` on the kernel's operands (``cam_fixed [C]``
+    bool in place of the free flags)."""
+    free = torch.logical_not(cam_fixed).to(uv.dtype)
+    return proj_cm_plain(model, robust, R, t, intr, X, obs_cam, obs_pt, uv, w, free, scale)
+
+
+def _launch_cm(model, robust, R, t, intr, X, obs_cam, obs_pt, uv, w, cam_fixed,
+               scale, vec: Optional[bool] = None) -> Outputs:
+    """Launch the CUDA kernel on the current stream of the tensors' device.
+    It reads the problem's ``cam_fixed [C]`` (bool) itself, so a call makes
+    no device work beside the kernel.  ``vec``: 4 consecutive observations a
+    thread in 16-byte vectors (True; raises where M % 4 or the alignment
+    forbids it), one a thread (False), or chosen by shape (None, as the
+    entry points do).  The two agree to rounding (the compiler may contract
+    other multiply-adds in each); each repeats its own bits."""
     global LAUNCHES
     from pysfm_tpu_torch.solver.kernels import _build
 
@@ -85,7 +99,7 @@ def _launch_cm(model, robust, R, t, intr, X, obs_cam, obs_pt, uv, w, free,
     _check("obs_pt", obs_pt, i32, (M,), dev)
     _check("uv", uv, f32, (M, 2), dev)
     _check("w", w, f32, (M,), dev)
-    _check("free", free, f32, (C,), dev)
+    _check("cam_fixed", cam_fixed, torch.bool, (C,), dev)
     _check("scale", scale, f32, (), dev)
     if M > 2**31 - 256:
         raise ValueError(f"M={M} overflows the kernel's int32 observation index")
@@ -103,7 +117,7 @@ def _launch_cm(model, robust, R, t, intr, X, obs_cam, obs_pt, uv, w, free,
             _MODEL_ID[model], _ROBUST_ID[robust],
             R.data_ptr(), t.data_ptr(), intr.data_ptr(), X.data_ptr(),
             obs_cam.data_ptr(), obs_pt.data_ptr(), uv.data_ptr(), w.data_ptr(),
-            free.data_ptr(), scale.data_ptr(), M,
+            cam_fixed.data_ptr(), scale.data_ptr(), M, -1 if vec is None else int(vec),
             rt.data_ptr(), Jct.data_ptr(), Jpt.data_ptr(), wt.data_ptr(),
             stream,
         )
@@ -118,7 +132,7 @@ def _proj_cm(model, robust, *args) -> Outputs:
     robust_mod._check(robust)
     device = args[6].device  # uv
     if device.type == "cpu":
-        return proj_cm_plain(model, robust, *args)
+        return _plain(model, robust, *args)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     return _launch_cm(model, robust, *args)
@@ -128,12 +142,17 @@ def residuals_jacobians_weights_cm(model, robust, Rg, tg, ig, Xg, obs_uv,
                                    obs_w, free, robust_scale) -> Outputs:
     """JAX-signature entry (``pallas_proj.residuals_jacobians_weights_cm``):
     gathered operands ``Rg [M,3,3]``, ``tg [M,3]``, ``ig [M,I]``,
-    ``Xg [M,3]``, ``free [M]``; runs the kernel with identity indices."""
+    ``Xg [M,3]``, ``free [M]``; runs the kernel with identity indices.
+    ``free`` is a flag, 1.0 free and 0.0 gauge-fixed, as every caller builds
+    it from ``cam_fixed``: the kernel keeps J_cam where ``free != 0`` and
+    zeroes it where ``free == 0``.  For such flags this equals the JAX
+    kernel, which multiplies J_cam by ``free``; a value other than 0 or 1
+    would scale J_cam there and not here."""
     M = obs_uv.shape[0]
     idx = torch.arange(M, dtype=torch.int32, device=obs_uv.device)
     scale = torch.as_tensor(robust_scale, dtype=obs_uv.dtype, device=obs_uv.device)
-    return _proj_cm(model, robust, Rg, tg, ig, Xg, idx, idx, obs_uv, obs_w,
-                    free.to(obs_uv.dtype), scale)
+    return _proj_cm(model, robust, Rg, tg, ig, Xg, idx, idx, obs_uv, obs_w, free == 0,
+                    scale)
 
 
 def _to_std(rt, Jct, Jpt, wt):
@@ -152,9 +171,9 @@ def residuals_jacobians_weights(model, robust, Rg, tg, ig, Xg, obs_uv,
 
 
 def _problem_args(p):
-    free = torch.logical_not(p.cam_fixed).to(p.dtype)
+    """The kernel's operands: the problem's own arrays, nothing computed."""
     return (p.R, p.t, p.intr, p.X, p.obs_cam, p.obs_pt, p.obs_uv, p.obs_w,
-            free, p.robust_scale)
+            p.cam_fixed, p.robust_scale)
 
 
 def residuals_and_jacobians_cm(p) -> Outputs:

@@ -62,9 +62,15 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 # hcpT_x tile (whole points; a point with more than half of it is alone).
 HCP_W_CHUNK = 1024
 HCPT_X_TILE = 1024
-# Blocks of the cost kernel's first pass (grid-stride over observations).
+# Threads of a cost-kernel block, and the most blocks it runs (it runs one
+# per SM at most, grid-stride over the observations).
+_COST_BLOCK = 1024
 _COST_MAX_BLOCKS = 1024
 _BLOCK = 256
+# The cost kernel's tickets: an int32 zero per (device, stream), allocated
+# at first use.  The kernel's last block sets it back to 0, so one counter
+# serves every call on that stream.
+_COST_TICKETS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,13 +395,28 @@ def cost_plain(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
 
 
 def cost_blocks(M: int) -> int:
-    """Blocks of the cost kernel's first pass for M observations."""
-    return max(1, min(_COST_MAX_BLOCKS, -(-M // _BLOCK)))
+    """Double partials the cost kernel may write for M observations (its
+    grid, one block of 1024 threads per SM at most, is chosen on the card
+    and never exceeds this)."""
+    return max(1, min(_COST_MAX_BLOCKS, -(-M // _COST_BLOCK)))
+
+
+def cost_ticket(device, stream: int) -> torch.Tensor:
+    """The cost kernel's ticket counter for ``stream`` on ``device``: an
+    int32 ``[1]`` zero, allocated once and reused (the kernel's last block
+    resets it); two streams never share one."""
+    key = (torch.device(device), stream)
+    ticket = _COST_TICKETS.get(key)
+    if ticket is None:
+        ticket = _COST_TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=key[0])
+    return ticket
 
 
 def cost(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
     """Robust cost ``0.5 sum_m w_m rho(|r_m|^2)`` (K_C; JAX
-    ``cost_grouped``), an f32 scalar tensor on the kernel route."""
+    ``cost_grouped``), an f32 scalar tensor on the kernel route.  The
+    kernel is one launch: per-block double partials added in block order by
+    the last block."""
     projection._check_model(model)
     robust_mod._check(robust)
     if not _route(X3):
@@ -407,14 +428,16 @@ def cost(ops: GroupedOps, ctab, X3, robust_scale, *, model, robust):
     _check("ctab", ctab, f32, (13 + projection.INTR_DIM[model], C), dev)
     _check("X3", X3, f32, (3, P), dev)
     _check("robust_scale", robust_scale, f32, (), dev)
-    n_blocks = cost_blocks(M)
-    partial = torch.empty((n_blocks,), dtype=torch.float64, device=dev)
+    n_partial = cost_blocks(M)
+    partial = torch.empty((n_partial,), dtype=torch.float64, device=dev)
     out = torch.empty((), dtype=f32, device=dev)
+    stream = _stream(dev)
     err = _lib().pysfm_cost(
         _MODEL_ID[model], _ROBUST_ID[robust], ctab.data_ptr(), C, X3.data_ptr(), P,
         ops.obs_cam.data_ptr(), ops.obs_pt.data_ptr(), ops.u.data_ptr(),
         ops.v.data_ptr(), ops.w.data_ptr(), robust_scale.data_ptr(), M,
-        partial.data_ptr(), n_blocks, out.data_ptr(), _stream(dev),
+        partial.data_ptr(), n_partial,
+        cost_ticket(dev, stream).data_ptr(), out.data_ptr(), stream,
     )
     _launched("cost", err)
     return out

@@ -15,7 +15,9 @@ Both block reductions run in the gathered (table) domain, as in the JAX
 module: one row gather through the padded ``cam_obs`` / ``pt_obsT`` tables
 and a masked sum over the track axis, so the summation order is fixed and
 the result is deterministic on every device.  ``obs_chunk`` bounds the
-Jacobian working set to one chunk (a Python loop over chunks).
+Jacobian working set to one chunk (a Python loop over chunks); 0 means
+chunks of :data:`OBS_CHUNK_DEFAULT` observations, as the JAX module's code
+does (``_chunked``).
 """
 
 from __future__ import annotations
@@ -93,8 +95,15 @@ def _unpack_sym(rows: torch.Tensor, cp: int) -> torch.Tensor:
     return out
 
 
+# Observations of one chunk when ``obs_chunk`` is 0 (the JAX module's
+# ``min(obs_chunk or (1 << 18), M)``).
+OBS_CHUNK_DEFAULT = 1 << 18
+
+
 def _chunks(M: int, obs_chunk: int):
-    step = min(obs_chunk or M, M) or 1
+    """``[(lo, hi)]`` chunks of at most ``obs_chunk`` observations (0: at
+    most :data:`OBS_CHUNK_DEFAULT`) covering ``[0, M)`` in order."""
+    step = min(obs_chunk or OBS_CHUNK_DEFAULT, M) or 1
     return [(lo, min(lo + step, M)) for lo in range(0, M, step)]
 
 
@@ -102,8 +111,9 @@ def build_normal_equations_scale_cm(
     cmp: cm.CMProblem, obs_chunk: int = 0
 ) -> ScaleEqs:
     """Scatter-free component-major normal equations for the pcg route;
-    ``obs_chunk`` > 0 builds the payload one chunk of observations at a
-    time."""
+    the payload is built one chunk of ``obs_chunk`` observations at a time
+    (0: :data:`OBS_CHUNK_DEFAULT`) and the chunks are concatenated before
+    they are reduced."""
     cp = cmp.cam_dof
     ctab = cm.cam_table(cmp)                                  # [Dc, C]
     parts = [

@@ -30,7 +30,8 @@ class LMConfig:
     cg_iters: int = 100
     cg_tol: float = 1e-6
     # Observation-chunked Jacobian build for the pcg route without kernel
-    # operands (0 = unchunked).
+    # operands: chunks of obs_chunk observations (0 = chunks of 2^18, as the
+    # JAX package's code does).
     obs_chunk: int = 0
     # Residual/Jacobian/robust-weight build: "torch" (plain PyTorch),
     # "cuda" (the hand-written kernel, CUDA f32 only — raises otherwise),

@@ -77,6 +77,24 @@ def test_normalize_matches_jax(rng):
            rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize("shape", [(7, 3), (4, 5, 4)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pr_unpr_match_jax(rng, shape, dtype):
+    """Dehomogenize / homogenize as ``tests/test_geometry.py`` tests them,
+    against the JAX functions on the same inputs (f32 to its roundoff)."""
+    x = rng.normal(size=shape).astype(dtype)
+    x[..., -1] += np.where(x[..., -1] >= 0, 1.0, -1.0)  # away from a zero divisor
+    tol = TOL if dtype == np.float64 else dict(rtol=1e-6, atol=1e-6)
+    tx = torch.from_numpy(x)
+    got_pr, got_unpr = tproj.pr(tx), tproj.unpr(tx)
+    assert got_pr.dtype == got_unpr.dtype == tx.dtype
+    assert got_pr.shape == shape[:-1] + (shape[-1] - 1,)
+    assert got_unpr.shape == shape[:-1] + (shape[-1] + 1,)
+    _close(jproj.pr(jnp.asarray(x)), got_pr, **tol)
+    _close(jproj.unpr(jnp.asarray(x)), got_unpr, **tol)
+    _close(x, tproj.pr(tproj.unpr(tx)), **tol)
+
+
 def _camera_inputs(rng, model, n=50):
     R = np.asarray(jso3.exp(jnp.asarray(rng.normal(scale=0.3, size=(n, 3)))))
     t = rng.normal(size=(n, 3))

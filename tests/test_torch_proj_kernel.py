@@ -103,3 +103,20 @@ def test_dispatch_is_by_device():
     tp = tsyn.make_scene(3, 20, seed=1, device="cpu").problem.to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         proj.residuals_and_jacobians_cm(tp)
+
+
+def test_kernel_operands_are_the_problems_own_arrays():
+    """The kernel reads the problem's arrays as they are (``cam_fixed`` as
+    bool, no free flags computed per call), and the plain version on those
+    operands equals ``proj_cm_plain`` with the free flags."""
+    tp = tsyn.make_scene(4, 30, seed=2, device="cpu").problem
+    args = proj._problem_args(tp)
+    own = (tp.R, tp.t, tp.intr, tp.X, tp.obs_cam, tp.obs_pt, tp.obs_uv, tp.obs_w,
+           tp.cam_fixed, tp.robust_scale)
+    assert all(a is b for a, b in zip(args, own)) and len(args) == len(own)
+    assert args[8].dtype == torch.bool and bool(args[8][0]) and not bool(args[8][1:].any())
+    free = torch.logical_not(tp.cam_fixed).to(tp.dtype)
+    ref = proj.proj_cm_plain(tp.camera_model, tp.robust, *args[:8], free, args[9])
+    for a, b in zip(proj._plain(tp.camera_model, tp.robust, *args), ref):
+        assert torch.equal(a, b)
+    assert not bool(ref[1][:, tp.obs_cam == 0].any())  # the fixed camera's J_cam rows

@@ -2,7 +2,8 @@
 camera-sorted copy of the coupling rows (``b_cam``), each camera-ordered
 observation's point (``cam_pt``), and the static plans that cut the two
 row streams into the pieces one block of ``hcp_w`` (chunks) or ``hcpT_x``
-(tiles) owns.
+(tiles) owns; and the cost kernel's host-side scratch (its ticket counter
+and the size of its partials).
 
 The edge scenes are ``pipeline/synthetic.plan_edge_incidence``'s.  The CUDA
 kernels run only on the card (``chip_smoke.py`` holds them to their plain
@@ -172,3 +173,43 @@ def test_lm_loop_hands_both_row_copies_to_the_products(monkeypatch):
     solve(cmp, cfg, gops=make_grouped_ops(cmp))
     assert seen and all(seen) and all(calls.values())
     assert calls["precond_diag"] == cfg.max_iters
+
+
+def test_cost_ticket_is_one_zero_counter_per_stream(monkeypatch):
+    """The cost kernel's ticket: an int32 ``[1]`` zero, allocated once per
+    (device, stream) and handed back on every later call (the kernel's last
+    block resets it); two streams never share one."""
+    monkeypatch.setattr(spmv, "_COST_TICKETS", {})
+    cpu = torch.device("cpu")
+    t = spmv.cost_ticket(cpu, 7)
+    assert t.dtype == torch.int32 and t.shape == (1,) and t.device == cpu
+    assert int(t.item()) == 0
+    assert spmv.cost_ticket("cpu", 7) is t
+    other = spmv.cost_ticket(cpu, 8)
+    assert other is not t and int(other.item()) == 0
+    assert set(spmv._COST_TICKETS) == {(cpu, 7), (cpu, 8)}
+
+
+def test_plain_cost_allocates_no_ticket(monkeypatch):
+    """On CPU tensors ``cost`` runs its plain version and leaves the ticket
+    table untouched."""
+    monkeypatch.setattr(spmv, "_COST_TICKETS", {})
+    p = tsyn.make_bal_scene(5, 80, mean_track=3.0, max_track=5, robust="huber",
+                            robust_scale=2.0, noise_px=1.0, seed=2, dtype=np.float32,
+                            with_truth=False, layout="cm", device="cpu").problem
+    ops = make_grouped_ops(p)
+    got = spmv.cost(ops, tcm.cam_table(p), p.X3, p.robust_scale, model=p.camera_model,
+                    robust=p.robust)
+    ref = spmv.cost_plain(ops, tcm.cam_table(p), p.X3, p.robust_scale,
+                          model=p.camera_model, robust=p.robust)
+    assert torch.equal(got, ref) and spmv._COST_TICKETS == {}
+
+
+@pytest.mark.parametrize("M", [1, 1023, 1024, 1025, 164_184, 4_999_244, 2**31 - 256])
+def test_cost_partials_cover_one_block_per_sm(M):
+    """The partials hold one double a block of 1024 observations, at most
+    1024: more than the one block per SM (132 on an H100) the kernel runs,
+    and never fewer than the blocks that M needs below that."""
+    n = spmv.cost_blocks(M)
+    assert 1 <= n <= 1024
+    assert n == min(1024, -(-M // 1024))
