@@ -63,7 +63,23 @@ Phases (any failure raises and the script exits non-zero):
    points, camera model "bal"): ``save_bal``, ``load_bal`` onto the card
    through the native tokenizer, a segmented pcg solve with the kernels,
    and a checkpoint at the half whose resumed cost log must equal the tail
-   of the straight solve to 1e-5.
+   of the straight solve to 1e-5;
+11. [incremental] BASELINE config 2 as bench.py runs it: an f32 track
+   table of 10 keyframes and 1k points through ``run_incremental`` on the
+   card, twice (frames/s of each run, the fenced stage times), under the
+   gates of tests/test_pipeline.py, with at least one projection-kernel
+   launch per BA solve; the same scene as an f64 table (the plain route,
+   no launch) on the card and on the host, both drawing their minimal sets
+   from one host generator, compared by their camera centres;
+12. [incremental scale] bench/incremental_scale.py's scene (50 keyframes,
+   2k points, visibility 0.35) as an f32 track table, twice: every frame
+   registered, ATE < 2e-2, at least one projection-kernel launch per BA
+   solve, frames/s and the fenced stage times;
+13. [images] tests/test_tracks.py's dot video (6 frames of 160x220)
+   through ``run_from_images`` on the card under that test's gates, then
+   ``detect_and_describe`` + ``match_descriptors`` on a 480x640 frame pair:
+   f64 on the card against f64 on the host (the same keypoint sets, xy and
+   descriptors within 1e-9), and the f32 time on the card.
 
 No solve path runs K_D (as in the JAX package): every solve checks that it
 launched 0 times.
@@ -146,6 +162,58 @@ SPMV_SOURCE = {
     "hcp_w": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:654"),
     "precond_diag": ("pysfm_tpu_torch/csrc/spmv.cu", "pysfm_tpu/solver/kernels/pallas_spmv.py:1046"),
 }
+
+# The dot video of tests/test_tracks.py: a camera translating past 120
+# textured 3-D points, 6 frames of 160 x 220, rendered by bilinear
+# splatting (subpixel truth).
+DOT_H, DOT_W, DOT_F, DOT_TEX = 160, 220, 180.0, 5
+# A camera-size frame pair for the front end alone.
+CAMERA_FRAME = (480, 640)
+
+
+def render_dots(points_px: np.ndarray, textures: np.ndarray, shape=(DOT_H, DOT_W)) -> np.ndarray:
+    """Splat a TEX x TEX texture per point with bilinear subpixel placement
+    (tests/test_tracks.py's ``_render``, vectorised: ``np.add.at`` adds in
+    the loop's order, so the image is the same bit for bit)."""
+    H, W = shape
+    r = DOT_TEX // 2
+    x, y = points_px[:, 0], points_px[:, 1]
+    keep = (r + 1 <= x) & (x < W - r - 2) & (r + 1 <= y) & (y < H - r - 2)
+    x, y, tex = x[keep], y[keep], textures[keep]
+    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    fx, fy = x - x0, y - y0
+    ty, tx, dy, dx = np.meshgrid(*(np.arange(n) for n in (DOT_TEX, DOT_TEX, 2, 2)),
+                                 indexing="ij")
+    wgt = (np.where(dx, fx[:, None, None, None, None], 1 - fx[:, None, None, None, None])
+           * np.where(dy, fy[:, None, None, None, None], 1 - fy[:, None, None, None, None]))
+    rows = y0[:, None, None, None, None] + ty - r + dy
+    cols = x0[:, None, None, None, None] + tx - r + dx
+    img = np.zeros((H, W))
+    np.add.at(img, (rows.ravel(), cols.ravel()), (tex[:, :, :, None, None] * wgt).ravel())
+    return img
+
+
+def dot_video(n_frames: int = 6, shape=(DOT_H, DOT_W), n_pts: int = 120, seed: int = 5):
+    """(images [F, H, W], camera centers [F, 3], points [n, 3], textures):
+    the video of tests/test_tracks.py's ``dot_video`` fixture at its
+    defaults; a larger ``shape`` and ``n_pts`` give a camera-size frame
+    (the focal length scales with the width, the principal point is the
+    centre)."""
+    H, W = shape
+    focal = DOT_F * W / DOT_W
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts),
+                  rng.uniform(9, 13, n_pts)], axis=-1)
+    centers = np.stack([np.linspace(0, 3.0, n_frames), 0.05 * rng.normal(size=n_frames),
+                        np.linspace(0, 0.5, n_frames)], axis=-1)
+    textures = rng.uniform(0.0, 1.0, (n_pts, DOT_TEX, DOT_TEX))
+    images = []
+    for c in centers:
+        p = X - c  # identity rotation, t = -c
+        px = np.stack([focal * p[:, 0] / p[:, 2] + W / 2, focal * p[:, 1] / p[:, 2] + H / 2],
+                      axis=-1)
+        images.append(render_dots(px, textures, shape))
+    return np.stack(images), centers, X, textures
 
 
 def _import_port():
@@ -1387,6 +1455,240 @@ def phase_bal_io(smi) -> dict:
     return counts
 
 
+# BASELINE config 2 as bench.py runs it, and bench/incremental_scale.py's
+# scene; tests/test_pipeline.py's gates (0.5 px noise) and
+# tests/test_tracks.py's.
+INCR_SCENE = dict(noise_px=0.5, seed=13, radius=10.0)
+INCR_ATE, INCR_RMSE_PX, INCR_POINTS = 2e-2, 1.0, 0.9
+IMAGES_ATE, IMAGES_RMSE_PX = 0.15, 1.5
+FRAME_TOL = 1e-9
+
+
+def _track_table(n_frames, n_points, visibility, dtype):
+    """(uv [F, T, 2], vis [F, T], intr [F, 4], truth problem): a synthetic
+    scene's observations as a dense track table of ``dtype``, the truth
+    kept on the host in f64 for the ATE."""
+    from pysfm_tpu_torch.pipeline import synthetic
+
+    truth = synthetic.make_scene(n_frames, n_points, visibility=visibility, dtype=np.float64,
+                                 device="cpu", **INCR_SCENE).truth
+    oc, op = truth.obs_cam.numpy(), truth.obs_pt.numpy()
+    uv = np.zeros((n_frames, n_points, 2), dtype)
+    vis = np.zeros((n_frames, n_points), bool)
+    uv[oc, op] = truth.obs_uv.numpy()
+    vis[oc, op] = True
+    return uv, vis, truth.intr.numpy().astype(dtype), truth
+
+
+def _ate(rec, R_gt, t_gt) -> float:
+    """ATE of a reconstruction's camera centres against (R_gt, t_gt), after
+    Sim(3) alignment, in f64 on the host."""
+    from pysfm_tpu_torch.utils import metrics
+
+    C = metrics.camera_centers(rec.problem.R.double().cpu(), rec.problem.t.double().cpu())
+    return float(metrics.ate_rmse(C, metrics.camera_centers(R_gt, t_gt)))
+
+
+def _incremental_run(label, table, cfg, device="cuda", sampler=None, gates=True):
+    """One run_incremental, its wall time, and the gates of
+    tests/test_pipeline.py; returns (reconstruction, seconds, ate, rmse)."""
+    from pysfm_tpu_torch.pipeline import run_incremental
+    from pysfm_tpu_torch.utils import metrics
+
+    uv, vis, intr, truth = table
+    rec, secs = _timed(lambda: run_incremental(uv, vis, intr, "pose", cfg, device=device,
+                                               sampler=sampler))
+    ate = _ate(rec, truth.R, truth.t)
+    rmse = metrics.reprojection_rmse(rec.problem)
+    if not rec.registered.all():
+        raise AssertionError(f"{label}: registered {int(rec.registered.sum())} of "
+                             f"{len(rec.registered)} frames")
+    if gates and not (rec.has_point.mean() > INCR_POINTS and rmse < INCR_RMSE_PX):
+        raise AssertionError(f"{label}: has_point {rec.has_point.mean():.3f}, rmse {rmse:.3f} px")
+    if not ate < INCR_ATE:
+        raise AssertionError(f"{label}: ATE {ate:.3e} (gate {INCR_ATE})")
+    return rec, secs, ate, rmse
+
+
+def _kernel_per_solve(label, rec, launches):
+    """The f32 track table takes the projection kernel in every BA solve."""
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    n_ba = len(rec.stats["ba_costs"])
+    if launches < n_ba or any(spmv.LAUNCHES.values()):
+        raise AssertionError(f"{label}: projection kernel launched {launches} times for "
+                             f"{n_ba} BA solves; pcg kernels {spmv.LAUNCHES} (expected none)")
+    return n_ba
+
+
+def phase_incremental(smi) -> int:
+    """BASELINE config 2 (bench.py): 10 keyframes, 1k points, an f32 track
+    table through run_incremental on the card twice; the same scene as an
+    f64 table on the card and on the host, both fed the same minimal sets
+    by a host generator.  Returns the projection kernel's launches."""
+    from pysfm_tpu_torch.frontend import ransac
+    from pysfm_tpu_torch.pipeline import IncrementalConfig
+    from pysfm_tpu_torch.solver.kernels import proj
+    from pysfm_tpu_torch.utils import metrics
+
+    cfg = IncrementalConfig(seed=2)
+    table = _track_table(10, 1000, 0.85, np.float32)
+    F = table[1].shape[0]
+    _reset_counts()
+    runs = []
+    for k in range(2):
+        before = proj.LAUNCHES
+        rec, secs, ate, rmse = _incremental_run(f"incremental f32 run {k + 1}", table, cfg)
+        n_ba = _kernel_per_solve("incremental", rec, proj.LAUNCHES - before)
+        runs.append((rec, secs, ate, rmse, n_ba, proj.LAUNCHES - before))
+    table64 = _track_table(10, 1000, 0.85, np.float64)
+    f32_launches = proj.LAUNCHES
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = _incremental_run(f"incremental f64 on {dev}", table64, cfg, device=dev,
+                                    sampler=ransac.generator_sampler(2, "cpu"))
+    launches = proj.LAUNCHES
+    if launches != f32_launches:
+        raise AssertionError("incremental: an f64 table launched the projection kernel "
+                             f"{launches - f32_launches} times (it takes the plain route)")
+    (rc, _, ate_c, _), (rh, _, ate_h, _) = out["cuda"], out["cpu"]
+    C = [metrics.camera_centers(r.problem.R.cpu(), r.problem.t.cpu()) for r in (rc, rh)]
+    d_centres = float(metrics.ate_rmse(C[0], C[1]))
+    for k, (rec, secs, ate, rmse, n_ba, n_launch) in enumerate(runs):
+        print(f"[incremental] f32 run {k + 1}: {F / secs:.3f} frames/s ({secs:.3f} s), ATE "
+              f"{ate:.3e}, rmse {rmse:.4f} px, has_point {rec.has_point.mean():.3f}, init pair "
+              f"{rec.stats['init_pair']}, {n_ba} BA solves, {n_launch} projection-kernel "
+              f"launches | {smi}")
+    print(f"[incremental] stage seconds of run 2 (fenced): {runs[1][0].stats['timings_s']}")
+    print(f"[incremental] f64 table, one host generator's draws: card init pair "
+          f"{rc.stats['init_pair']}, registered {int(rc.registered.sum())}, ATE {ate_c:.3e}; "
+          f"host init pair {rh.stats['init_pair']}, registered {int(rh.registered.sum())}, "
+          f"ATE {ate_h:.3e}; camera centres card vs host after Sim(3) {d_centres:.3e}; "
+          f"pnp inliers equal: {rc.stats['pnp_inliers'] == rh.stats['pnp_inliers']}")
+    _minimal_fit_timing(smi)
+    return launches
+
+
+def _minimal_fit_timing(smi, n_pairs=20, npad=736, n_hyp=256) -> None:
+    """The bootstrap's minimal 8-point fits at its shapes (20 pairs x 256
+    hypotheses, 736 padded rows, f64): the port's gathered [9, 9] systems
+    against the reference's one-hot weighted [npad, 9] systems."""
+    from pysfm_tpu_torch.frontend import epipolar
+    from pysfm_tpu_torch.pipeline.incremental import _gather_rows
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pn1, pn2 = (torch.rand(n_pairs, npad, 2, generator=g, device="cuda", dtype=torch.float64)
+                for _ in range(2))
+    idx = torch.rand(n_pairs, n_hyp, npad, generator=g, device="cuda").argsort(-1)[..., :8]
+    w = torch.zeros(n_pairs, n_hyp, npad, dtype=torch.float64, device="cuda")
+    w.scatter_(-1, idx, 1.0)
+
+    def gathered():
+        return epipolar.eight_point(_gather_rows(pn1, idx), _gather_rows(pn2, idx), essential=True)
+
+    def weighted():
+        return epipolar.eight_point(pn1[:, None], pn2[:, None], w=w, essential=True)
+
+    err = float((epipolar.sampson_distance(gathered(), pn1[:, None], pn2[:, None])
+                 - epipolar.sampson_distance(weighted(), pn1[:, None], pn2[:, None])).abs().max())
+    ms = {name: _host_ms(fn, n=3) for name, fn in (("gathered", gathered), ("weighted", weighted),
+                                                    ("gathered again", gathered))}
+    print(f"[incremental] bootstrap minimal fits ({n_pairs} pairs x {n_hyp} hypotheses, f64): "
+          f"gathered [9, 9] SVDs {ms['gathered']:.2f}, {ms['gathered again']:.2f} ms; one-hot "
+          f"weighted [{npad}, 9] SVDs {ms['weighted']:.2f} ms (host clock, synchronized); "
+          f"Sampson residuals of the two within {err:.1e} | {smi}")
+
+
+def phase_incremental_scale(smi) -> int:
+    """bench/incremental_scale.py's scene (50 keyframes, 2k points,
+    visibility 0.35) as an f32 track table, run twice in one process."""
+    from pysfm_tpu_torch.pipeline import IncrementalConfig
+    from pysfm_tpu_torch.solver.kernels import proj
+
+    cfg = IncrementalConfig(seed=2)
+    table = _track_table(50, 2000, 0.35, np.float32)
+    F = table[1].shape[0]
+    _reset_counts()
+    for k in range(2):
+        before = proj.LAUNCHES
+        rec, secs, ate, rmse = _incremental_run(f"incremental scale run {k + 1}", table, cfg,
+                                                gates=False)
+        n_launch = proj.LAUNCHES - before
+        n_ba = _kernel_per_solve("incremental scale", rec, n_launch)
+        print(f"[incremental scale] run {k + 1}: {F / secs:.3f} frames/s ({secs:.3f} s), ATE "
+              f"{ate:.3e}, rmse {rmse:.4f} px, has_point {rec.has_point.mean():.3f}, "
+              f"{n_ba} BA solves, {n_launch} projection-kernel launches; stage seconds "
+              f"(fenced) {rec.stats['timings_s']} | {smi}")
+    return proj.LAUNCHES
+
+
+def phase_images(smi) -> None:
+    """tests/test_tracks.py's dot video through run_from_images on the card
+    (its gates), then the front end on one camera-size frame pair: f64 on
+    the card against f64 on the host, and the f32 time on the card."""
+    from pysfm_tpu_torch.frontend import features, match
+    from pysfm_tpu_torch.pipeline import IncrementalConfig, TrackingConfig, run_from_images
+    from pysfm_tpu_torch.utils import metrics
+
+    images, centers, _, _ = dot_video()
+    intr = np.tile(np.array([DOT_F, DOT_F, DOT_W / 2, DOT_H / 2]), (images.shape[0], 1))
+    cfg = IncrementalConfig(seed=4, pnp_threshold=3e-5, epipolar_threshold=3e-5)
+    rec, secs = _timed(lambda: run_from_images(
+        images, intr, "pose", tracking=TrackingConfig(n_keypoints=256),
+        incremental_config=cfg))
+    C = metrics.camera_centers(rec.problem.R.cpu(), rec.problem.t.cpu())
+    ate = float(metrics.ate_rmse(C, torch.as_tensor(centers)))
+    rmse = metrics.reprojection_rmse(rec.problem)
+    if not (rec.registered.all() and ate < IMAGES_ATE and rmse < IMAGES_RMSE_PX):
+        raise AssertionError(f"images: registered {int(rec.registered.sum())}/"
+                             f"{len(rec.registered)}, ATE {ate:.3e}, rmse {rmse:.3f} px")
+    print(f"[images] run_from_images, {images.shape[0]} frames of {DOT_H}x{DOT_W}: "
+          f"{images.shape[0] / secs:.3f} frames/s ({secs:.3f} s), {rec.problem.n_points} "
+          f"tracks, ATE {ate:.3e}, rmse {rmse:.4f} px | {smi}")
+
+    frames = dot_video(shape=CAMERA_FRAME, n_pts=1500)[0][:2]
+    n_kp = TrackingConfig().n_keypoints
+
+    def front(img):
+        kp, d = features.detect_and_describe(img, n_kp)
+        m = match.match_descriptors(d[0], d[1], valid1=kp.valid[0], valid2=kp.valid[1],
+                                    min_similarity=0.85, ratio=0.75)
+        return kp, d, m
+
+    outs = [[t.cpu() for t in (kp.xy, kp.valid, d, m.valid, m.idx2)]
+            for kp, d, m in (front(torch.as_tensor(frames, device=dev)) for dev in ("cuda", "cpu"))]
+    (xy_c, v_c, d_c, mv_c, mi_c), (xy_h, v_h, d_h, mv_h, mi_h) = outs
+    for f in range(2):
+        oc = np.argsort(_pixel_keys(xy_c[f][v_c[f]]))
+        oh = np.argsort(_pixel_keys(xy_h[f][v_h[f]]))
+        same = (int(v_c[f].sum()) == int(v_h[f].sum())
+                and np.array_equal(_pixel_keys(xy_c[f][v_c[f]])[oc],
+                                   _pixel_keys(xy_h[f][v_h[f]])[oh]))
+        err_xy = float((xy_c[f][v_c[f]][oc] - xy_h[f][v_h[f]][oh]).abs().max()) if same else 0
+        err_d = float((d_c[f][v_c[f]][oc] - d_h[f][v_h[f]][oh]).abs().max()) if same else 0
+        if not (same and err_xy <= FRAME_TOL and err_d <= FRAME_TOL):
+            raise AssertionError(f"images: frame {f} card vs host keypoint sets equal {same}, "
+                                 f"xy err {err_xy}, descriptor err {err_d}")
+    n_match = int(mv_c.sum())
+    if n_match != int(mv_h.sum()):
+        raise AssertionError(f"images: card {n_match} matches, host {int(mv_h.sum())}")
+    img32 = torch.as_tensor(frames, dtype=torch.float32, device="cuda")
+    ms = _device_ms(lambda: front(img32), n=10)
+    call_ms = _host_ms(lambda: front(img32), n=10)
+    print(f"[images] front end on a {CAMERA_FRAME[0]}x{CAMERA_FRAME[1]} frame pair "
+          f"({n_kp} keypoints, {int(v_c.sum())} valid): f64 card == host keypoint sets, xy and "
+          f"descriptors within {FRAME_TOL}, {n_match} matches on both; f32 detect_and_describe "
+          f"(2 frames) + match: device {ms:.4f} ms, call with host overhead {call_ms:.4f} ms "
+          f"| {smi}")
+
+
+def _pixel_keys(xy: torch.Tensor) -> np.ndarray:
+    """A keypoint's integer pixel (row-major flat index of its rounded
+    position): the key by which keypoint sets are compared."""
+    p = torch.round(xy.double()).long()
+    return (p[:, 1] * 100_000 + p[:, 0]).numpy()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port has no CPU fallback here",
@@ -1394,6 +1696,7 @@ def main() -> int:
         return 1
     _import_port()
     from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver.kernels import spmv
 
     smi = phase_env()
     phase_build()
@@ -1411,10 +1714,16 @@ def main() -> int:
     proj_venice = phase_proj_venice(smi)
     venice_stats, venice_counts = phase_pcg_venice(smi)
     io_counts = phase_bal_io(smi)
+    incr_launches = phase_incremental(smi)
+    incr_counts = dict(spmv.LAUNCHES)
+    scale_launches = phase_incremental_scale(smi)
+    scale_counts = dict(spmv.LAUNCHES)
+    phase_images(smi)
 
     # Launches on each main path, each read just after the path ran with
     # the counts set to 0 just before it.
-    proj_paths = {"main": launches, "std": std["launches"]}
+    proj_paths = {"main": launches, "std": std["launches"], "incremental": incr_launches,
+                  "incremental scale": scale_launches}
     kernels = [{
         "name": "proj_cm",
         "route": "cuda",
@@ -1429,7 +1738,8 @@ def main() -> int:
         source, replaces = SPMV_SOURCE[name]
         st = pcg_stats[name]
         paths = {"pcg main": pcg_counts[name], "pcg venice": venice_counts[name],
-                 "bal io": io_counts[name]}
+                 "bal io": io_counts[name], "incremental": incr_counts[name],
+                 "incremental scale": scale_counts[name]}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(paths.values()),
                         "launches_by_path": paths,

@@ -6,7 +6,8 @@ wherever a tensor is made, and numpy ``Generator``s for scene randomness.
 The JAX package stays the reference; ``tests/test_torch_*.py`` hold every
 ported module to it on the same inputs.
 
-Ported so far (the dense routes, the pcg route and the BAL-file path):
+Ported so far (the dense routes, the pcg route, the BAL-file path, the
+front end and the incremental pipeline):
 
 - ``geometry``  — SO(3), SE(3), projection models with analytic Jacobians
 - ``problem``   — ``BundleProblem``, the component-major ``CMProblem``,
@@ -16,9 +17,13 @@ Ported so far (the dense routes, the pcg route and the BAL-file path):
   ``solver.kernels`` holds the hand-written CUDA kernels (``csrc/``):
   ``proj`` (projection/Jacobian) and ``spmv`` (normal equations, coupling
   rows, cost, the products with Hcp, the block-Jacobi diagonal)
+- ``frontend``  — triangulation, the 8-point E/F, batched RANSAC (explicit
+  generators or given minimal sets), DLT PnP and P3P, Harris features and
+  patch descriptors, matching
 - ``io``        — BAL and Bundler files, checkpoints (the JAX package's
   file format), the C++ tokenizer
-- ``pipeline``  — synthetic scenes, up to the Venice-scale BAL scene
+- ``pipeline``  — synthetic scenes up to the Venice-scale BAL scene, the
+  incremental SfM pipeline and tracking from images
 - ``utils``     — precision policy, config, timing fences, metrics
 
 This package imports ``torch`` and ``numpy`` and never ``jax``.
@@ -26,4 +31,4 @@ This package imports ``torch`` and ``numpy`` and never ``jax``.
 
 __version__ = "0.1.0"
 
-from pysfm_tpu_torch import geometry, io, problem, solver  # noqa: F401
+from pysfm_tpu_torch import frontend, geometry, io, pipeline, problem, solver  # noqa: F401
