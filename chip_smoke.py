@@ -68,13 +68,18 @@ Phases (any failure raises and the script exits non-zero):
    table of 10 keyframes and 1k points through ``run_incremental`` on the
    card, twice (frames/s of each run, the fenced stage times), under the
    gates of tests/test_pipeline.py, with at least one projection-kernel
-   launch per BA solve; the same scene as an f64 table (the plain route,
-   no launch) on the card and on the host, both drawing their minimal sets
-   from one host generator, compared by their camera centres;
+   launch per BA solve; after each run the projection kernel is held to
+   its plain version on every problem the run gave its BA solves and on
+   its final problem; the same scene as an f64 table (the plain route, no
+   launch) on the card and on the host, both drawing their minimal sets
+   from one host generator, which must give the same init pair and PnP
+   inlier lists and camera centres within 1e-9;
 12. [incremental scale] bench/incremental_scale.py's scene (50 keyframes,
    2k points, visibility 0.35) as an f32 track table, twice: every frame
    registered, ATE < 2e-2, at least one projection-kernel launch per BA
-   solve, frames/s and the fenced stage times;
+   solve, the kernel held to its plain version on the run's problems as in
+   11, frames/s and the fenced stage times; then a third run under
+   torch.profiler for the device's idle share;
 13. [images] tests/test_tracks.py's dot video (6 frames of 160x220)
    through ``run_from_images`` on the card under that test's gates, then
    ``detect_and_describe`` + ``match_descriptors`` on a 480x640 frame pair:
@@ -1236,30 +1241,39 @@ def _pcg_solve_counted(p, cfg, gops, label):
     return st, secs, counts
 
 
-def phase_profile(p, cfg, gops, label, smi) -> None:
-    """One pcg solve under torch.profiler: device busy time over the traced
-    wall (the idle share), device kernels per LM iteration, and the kernels
-    that take the most device time.  Profiling slows the host, so the
-    traced wall is longer than an untraced solve."""
+def _traced(fn):
+    """fn() once under torch.profiler: (its result, its wall seconds, the
+    trace's device events, their device busy time in ms).  Profiling slows
+    the host, so the traced wall is longer than an untraced run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _solve_timed(p, cfg, gops)  # warm-up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, st, secs = _solve_timed(p, cfg, gops)
-    n = int(st.n_iters)
+        out, secs = _timed(fn)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    return out, secs, dev, sum(e.self_device_time_total for e in dev) / 1e3
+
+
+def _top_device(dev, n=6) -> str:
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:n]
+    return "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                     for e in top)
+
+
+def phase_profile(p, cfg, gops, label, smi) -> None:
+    """One pcg solve under torch.profiler: device busy time over the traced
+    wall (the idle share), device kernels per LM iteration, and the kernels
+    that take the most device time."""
+    _solve_timed(p, cfg, gops)  # warm-up
+    (_, st, _), secs, dev, busy_ms = _traced(lambda: _solve_timed(p, cfg, gops))
+    n = int(st.n_iters)
     if busy_ms <= 0.0:
         print(f"[{label} profile] the trace holds no device time: idle share not measured")
         return
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     print(f"[{label} profile] {n} LM iterations traced in {1e3 * secs:.1f} ms: device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (1e3 * secs):.3f}; "
           f"{sum(e.count for e in dev) / n:.1f} device kernels per LM iteration; most "
-          "device time: " + "; ".join(
-              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top)
-          + f" | {smi}")
+          "device time: " + _top_device(dev) + f" | {smi}")
 
 
 def phase_pcg_main(smi) -> dict:
@@ -1462,6 +1476,9 @@ INCR_SCENE = dict(noise_px=0.5, seed=13, radius=10.0)
 INCR_ATE, INCR_RMSE_PX, INCR_POINTS = 2e-2, 1.0, 0.9
 IMAGES_ATE, IMAGES_RMSE_PX = 0.15, 1.5
 FRAME_TOL = 1e-9
+# f64 card and host runs fed the same draws: camera centres within this
+# (ATE after Sim(3)); the rest of the two runs must be equal.
+INCR_CARD_HOST = 1e-9
 
 
 def _track_table(n_frames, n_points, visibility, dtype):
@@ -1489,15 +1506,27 @@ def _ate(rec, R_gt, t_gt) -> float:
     return float(metrics.ate_rmse(C, metrics.camera_centers(R_gt, t_gt)))
 
 
-def _incremental_run(label, table, cfg, device="cuda", sampler=None, gates=True):
+def _incremental_run(label, table, cfg, device="cuda", sampler=None, gates=True,
+                     problems=None):
     """One run_incremental, its wall time, and the gates of
-    tests/test_pipeline.py; returns (reconstruction, seconds, ate, rmse)."""
-    from pysfm_tpu_torch.pipeline import run_incremental
+    tests/test_pipeline.py; returns (reconstruction, seconds, ate, rmse).
+    ``problems``: a list that receives every problem the run hands to its
+    BA solve (window and full), as the solve received it."""
+    from pysfm_tpu_torch.pipeline import incremental, run_incremental
     from pysfm_tpu_torch.utils import metrics
 
     uv, vis, intr, truth = table
-    rec, secs = _timed(lambda: run_incremental(uv, vis, intr, "pose", cfg, device=device,
-                                               sampler=sampler))
+    solve = incremental.solve
+    if problems is not None:
+        def recording_solve(prob, config):
+            problems.append(prob)
+            return solve(prob, config)
+        incremental.solve = recording_solve
+    try:
+        rec, secs = _timed(lambda: run_incremental(uv, vis, intr, "pose", cfg, device=device,
+                                                   sampler=sampler))
+    finally:
+        incremental.solve = solve
     ate = _ate(rec, truth.R, truth.t)
     rmse = metrics.reprojection_rmse(rec.problem)
     if not rec.registered.all():
@@ -1521,11 +1550,35 @@ def _kernel_per_solve(label, rec, launches):
     return n_ba
 
 
+def _kernel_on_path(label, problems) -> str:
+    """The projection kernel against its plain version on the problems an
+    incremental run gave its BA solves (Cauchy at the configured scale,
+    gauge-fixed and padded identity cameras, zero-weight padded
+    observations, window M a power of two from 512, full-BA M = nnz(vis)),
+    and on the run's final full-shape problem, at KERNEL_TOL.  These
+    launches come after the path's counts were read and are not counted
+    for it."""
+    worst, by_branch, ms = 0.0, {"M % 4 == 0": 0, "M % 4 != 0": 0}, set()
+    for p in problems:
+        err, ok = _kernel_vs_plain(p)
+        if not ok:
+            raise AssertionError(f"{label}: projection kernel != plain at M={p.n_obs}, "
+                                 f"robust {p.robust}: max abs err {err:.3e}")
+        worst = max(worst, err)
+        by_branch["M % 4 == 0" if p.n_obs % 4 == 0 else "M % 4 != 0"] += 1
+        ms.add(p.n_obs)
+    return (f"projection kernel == plain on the path's {len(problems)} problems "
+            f"(M in {sorted(ms)}; {by_branch}, the kernel takes 4 observations a thread "
+            f"where M % 4 == 0): max abs err {worst:.3e} "
+            f"(bound {KERNEL_TOL} x (max|ref|+1))")
+
+
 def phase_incremental(smi) -> int:
     """BASELINE config 2 (bench.py): 10 keyframes, 1k points, an f32 track
     table through run_incremental on the card twice; the same scene as an
     f64 table on the card and on the host, both fed the same minimal sets
-    by a host generator.  Returns the projection kernel's launches."""
+    by a host generator, which must agree.  Returns the projection kernel's
+    launches on the path."""
     from pysfm_tpu_torch.frontend import ransac
     from pysfm_tpu_torch.pipeline import IncrementalConfig
     from pysfm_tpu_torch.solver.kernels import proj
@@ -1535,73 +1588,54 @@ def phase_incremental(smi) -> int:
     table = _track_table(10, 1000, 0.85, np.float32)
     F = table[1].shape[0]
     _reset_counts()
-    runs = []
+    runs, path_launches = [], 0
     for k in range(2):
-        before = proj.LAUNCHES
-        rec, secs, ate, rmse = _incremental_run(f"incremental f32 run {k + 1}", table, cfg)
-        n_ba = _kernel_per_solve("incremental", rec, proj.LAUNCHES - before)
-        runs.append((rec, secs, ate, rmse, n_ba, proj.LAUNCHES - before))
+        before, problems = proj.LAUNCHES, []
+        rec, secs, ate, rmse = _incremental_run(f"incremental f32 run {k + 1}", table, cfg,
+                                                problems=problems)
+        n_launch = proj.LAUNCHES - before
+        n_ba = _kernel_per_solve("incremental", rec, n_launch)
+        path_launches += n_launch
+        held = _kernel_on_path(f"incremental f32 run {k + 1}", problems + [rec.problem])
+        runs.append((rec, secs, ate, rmse, n_ba, n_launch, held))
     table64 = _track_table(10, 1000, 0.85, np.float64)
     f32_launches = proj.LAUNCHES
     out = {}
     for dev in ("cuda", "cpu"):
         out[dev] = _incremental_run(f"incremental f64 on {dev}", table64, cfg, device=dev,
                                     sampler=ransac.generator_sampler(2, "cpu"))
-    launches = proj.LAUNCHES
-    if launches != f32_launches:
+    if proj.LAUNCHES != f32_launches:
         raise AssertionError("incremental: an f64 table launched the projection kernel "
-                             f"{launches - f32_launches} times (it takes the plain route)")
+                             f"{proj.LAUNCHES - f32_launches} times (it takes the plain route)")
     (rc, _, ate_c, _), (rh, _, ate_h, _) = out["cuda"], out["cpu"]
     C = [metrics.camera_centers(r.problem.R.cpu(), r.problem.t.cpu()) for r in (rc, rh)]
     d_centres = float(metrics.ate_rmse(C[0], C[1]))
-    for k, (rec, secs, ate, rmse, n_ba, n_launch) in enumerate(runs):
+    same = (rc.stats["init_pair"] == rh.stats["init_pair"]
+            and rc.stats["pnp_inliers"] == rh.stats["pnp_inliers"])
+    if not (same and d_centres < INCR_CARD_HOST):
+        raise AssertionError(
+            f"incremental f64: card and host disagree on the same draws: init pair "
+            f"{rc.stats['init_pair']} vs {rh.stats['init_pair']}, pnp inliers equal "
+            f"{rc.stats['pnp_inliers'] == rh.stats['pnp_inliers']}, camera centres "
+            f"{d_centres:.3e} apart (bound {INCR_CARD_HOST})")
+    for k, (rec, secs, ate, rmse, n_ba, n_launch, held) in enumerate(runs):
         print(f"[incremental] f32 run {k + 1}: {F / secs:.3f} frames/s ({secs:.3f} s), ATE "
               f"{ate:.3e}, rmse {rmse:.4f} px, has_point {rec.has_point.mean():.3f}, init pair "
               f"{rec.stats['init_pair']}, {n_ba} BA solves, {n_launch} projection-kernel "
-              f"launches | {smi}")
+              f"launches; {held} | {smi}")
     print(f"[incremental] stage seconds of run 2 (fenced): {runs[1][0].stats['timings_s']}")
-    print(f"[incremental] f64 table, one host generator's draws: card init pair "
-          f"{rc.stats['init_pair']}, registered {int(rc.registered.sum())}, ATE {ate_c:.3e}; "
-          f"host init pair {rh.stats['init_pair']}, registered {int(rh.registered.sum())}, "
-          f"ATE {ate_h:.3e}; camera centres card vs host after Sim(3) {d_centres:.3e}; "
-          f"pnp inliers equal: {rc.stats['pnp_inliers'] == rh.stats['pnp_inliers']}")
-    _minimal_fit_timing(smi)
-    return launches
-
-
-def _minimal_fit_timing(smi, n_pairs=20, npad=736, n_hyp=256) -> None:
-    """The bootstrap's minimal 8-point fits at its shapes (20 pairs x 256
-    hypotheses, 736 padded rows, f64): the port's gathered [9, 9] systems
-    against the reference's one-hot weighted [npad, 9] systems."""
-    from pysfm_tpu_torch.frontend import epipolar
-    from pysfm_tpu_torch.pipeline.incremental import _gather_rows
-
-    g = torch.Generator(device="cuda").manual_seed(0)
-    pn1, pn2 = (torch.rand(n_pairs, npad, 2, generator=g, device="cuda", dtype=torch.float64)
-                for _ in range(2))
-    idx = torch.rand(n_pairs, n_hyp, npad, generator=g, device="cuda").argsort(-1)[..., :8]
-    w = torch.zeros(n_pairs, n_hyp, npad, dtype=torch.float64, device="cuda")
-    w.scatter_(-1, idx, 1.0)
-
-    def gathered():
-        return epipolar.eight_point(_gather_rows(pn1, idx), _gather_rows(pn2, idx), essential=True)
-
-    def weighted():
-        return epipolar.eight_point(pn1[:, None], pn2[:, None], w=w, essential=True)
-
-    err = float((epipolar.sampson_distance(gathered(), pn1[:, None], pn2[:, None])
-                 - epipolar.sampson_distance(weighted(), pn1[:, None], pn2[:, None])).abs().max())
-    ms = {name: _host_ms(fn, n=3) for name, fn in (("gathered", gathered), ("weighted", weighted),
-                                                    ("gathered again", gathered))}
-    print(f"[incremental] bootstrap minimal fits ({n_pairs} pairs x {n_hyp} hypotheses, f64): "
-          f"gathered [9, 9] SVDs {ms['gathered']:.2f}, {ms['gathered again']:.2f} ms; one-hot "
-          f"weighted [{npad}, 9] SVDs {ms['weighted']:.2f} ms (host clock, synchronized); "
-          f"Sampson residuals of the two within {err:.1e} | {smi}")
+    print(f"[incremental] f64 table, one host generator's draws: card and host init pair "
+          f"{rc.stats['init_pair']}, registered {int(rc.registered.sum())} and "
+          f"{int(rh.registered.sum())}, pnp inlier lists equal, ATE {ate_c:.3e} and "
+          f"{ate_h:.3e}; camera centres card vs host after Sim(3) {d_centres:.3e} "
+          f"(bound {INCR_CARD_HOST})")
+    return path_launches
 
 
 def phase_incremental_scale(smi) -> int:
     """bench/incremental_scale.py's scene (50 keyframes, 2k points,
-    visibility 0.35) as an f32 track table, run twice in one process."""
+    visibility 0.35) as an f32 track table, run twice in one process, then
+    a third time under torch.profiler for the device's idle share."""
     from pysfm_tpu_torch.pipeline import IncrementalConfig
     from pysfm_tpu_torch.solver.kernels import proj
 
@@ -1609,17 +1643,29 @@ def phase_incremental_scale(smi) -> int:
     table = _track_table(50, 2000, 0.35, np.float32)
     F = table[1].shape[0]
     _reset_counts()
+    lines, path_launches = [], 0
     for k in range(2):
-        before = proj.LAUNCHES
+        before, problems = proj.LAUNCHES, []
         rec, secs, ate, rmse = _incremental_run(f"incremental scale run {k + 1}", table, cfg,
-                                                gates=False)
+                                                gates=False, problems=problems)
         n_launch = proj.LAUNCHES - before
         n_ba = _kernel_per_solve("incremental scale", rec, n_launch)
-        print(f"[incremental scale] run {k + 1}: {F / secs:.3f} frames/s ({secs:.3f} s), ATE "
-              f"{ate:.3e}, rmse {rmse:.4f} px, has_point {rec.has_point.mean():.3f}, "
-              f"{n_ba} BA solves, {n_launch} projection-kernel launches; stage seconds "
-              f"(fenced) {rec.stats['timings_s']} | {smi}")
-    return proj.LAUNCHES
+        path_launches += n_launch
+        held = _kernel_on_path(f"incremental scale run {k + 1}", problems + [rec.problem])
+        lines.append(f"[incremental scale] run {k + 1}: {F / secs:.3f} frames/s ({secs:.3f} s), "
+                     f"ATE {ate:.3e}, rmse {rmse:.4f} px, has_point {rec.has_point.mean():.3f}, "
+                     f"{n_ba} BA solves, {n_launch} projection-kernel launches; stage seconds "
+                     f"(fenced) {rec.stats['timings_s']}; {held} | {smi}")
+    print("\n".join(lines))
+    (rec, _, _, _), secs, dev, busy_ms = _traced(
+        lambda: _incremental_run("incremental scale traced run", table, cfg, gates=False))
+    print(f"[incremental scale profile] run 3 traced in {secs:.3f} s ({F / secs:.3f} frames/s "
+          f"under the profiler): device busy {busy_ms:.1f} ms, idle share "
+          + ("not measured (the trace holds no device time)" if busy_ms <= 0.0 else
+             f"{1 - busy_ms / (1e3 * secs):.3f}") + f"; {sum(e.count for e in dev)} device "
+          f"kernels; fenced stage seconds {rec.stats['timings_s']}; most device time: "
+          + _top_device(dev) + f" | {smi}")
+    return path_launches
 
 
 def phase_images(smi) -> None:
