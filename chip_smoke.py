@@ -84,7 +84,25 @@ Phases (any failure raises and the script exits non-zero):
    through ``run_from_images`` on the card under that test's gates, then
    ``detect_and_describe`` + ``match_descriptors`` on a 480x640 frame pair:
    f64 on the card against f64 on the host (the same keypoint sets, xy and
-   descriptors within 1e-9), and the f32 time on the card.
+   descriptors within 1e-9), and the f32 time on the card;
+14. [dist venice] (run right after 9, on its scene) the distributed pcg route (``dist.solve_sharded_cm`` with
+   the kernels on the shard's own ``GroupedOps``) on the Venice-scale scene
+   in a world of one rank over NCCL, without and with the camera partition:
+   the cost log and CG counts of [pcg venice] (bitwise, or within 1e-6 with
+   equal CG counts, as printed), launches equal to the logs, ms per LM
+   iteration beside [pcg venice]'s, the collectives' calls and bytes, peak
+   memory; then ``dist.solve_sharded``'s dense route on the headline scene
+   (f32: the projection kernel on the shard, held to plain there, one launch
+   an LM iteration, costs within 1e-6 of [main]);
+15. [dist ranks] (run right after 14) two ranks on the one card over gloo with CUDA tensors
+   (NCCL refuses two ranks on one device), each building only its own shard
+   of [bal io]'s scene in the cm layout (~313k observations a rank): f32
+   with the kernels, without and with the camera partition, within 1e-3 of
+   the single-device kernel solve; f64 on the plain route within 1e-9 with
+   equal CG counts; on rank 0's shard K_E, K_C, ``hcpT_x``, ``hcp_w`` and K_H
+   held to their plain versions; each rank's launches against its logs.
+   gloo's reduce-scatter and all-gather run as all-reduces
+   (``dist/collectives.py``); the phase says so.
 
 No solve path runs K_D (as in the JAX package): every solve checks that it
 launched 0 times.
@@ -512,7 +530,7 @@ def _bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_main(p) -> int:
+def phase_main(p):
     from pysfm_tpu_torch.pipeline import synthetic
     from pysfm_tpu_torch.solver import LMConfig, solve
     from pysfm_tpu_torch.solver.kernels import proj
@@ -552,7 +570,7 @@ def phase_main(p) -> int:
           f"{costs[-1]:.6e}, {launches} kernel launches, accepted "
           f"{int(stats.accepted.sum())}/{N_ITERS}; plain route {c_plain:.6e} (rel {rel:.2e}); "
           f"small scene card f32 vs host f64 rel {rel_small:.2e}")
-    return launches
+    return launches, costs
 
 
 def phase_speed(p, smi: str) -> dict:
@@ -1357,7 +1375,7 @@ def phase_pcg_venice(smi) -> dict:
     for name in SPMV_KERNELS:
         print(f"[pcg venice] {name}: {counts[name] / n:.2f} launches per LM iteration")
     phase_profile(p, cfg, gops, "pcg venice", smi)
-    return stats, counts
+    return stats, counts, (p, st, secs)
 
 
 def phase_proj_venice(smi) -> dict:
@@ -1466,6 +1484,223 @@ def phase_bal_io(smi) -> dict:
           f"{t_load:.3f}, make_grouped_ops {t_gops:.3f}, solve_segmented ({n} iters) "
           f"{t_solve:.3f}, save_checkpoint_cm {t_ck:.3f}, load_checkpoint_cm "
           f"{t_restore:.3f} | {smi}")
+    return counts
+
+
+# The distributed path: the world of one rank over NCCL in this process
+# ([dist venice]), and two ranks on the one card over gloo ([dist ranks];
+# NCCL refuses two ranks on one device).
+DIST_TIMEOUT = 600
+# The [bal io] scene in the cm layout, for two ranks of ~313k observations.
+DIST_SCENE = {**IO_SCENE, "layout": "cm"}
+DIST_CFG = dict(max_iters=IO_ITERS, solver="pcg", cg_iters=25, cg_tol=1e-2, **NO_TOL)
+DIST_RTOL_F32 = 1e-3
+DIST_RTOL_F64 = 1e-9
+DIST_RTOL_VENICE = 1e-6
+
+
+def _collectives_note(n_lm, n_cg) -> str:
+    from pysfm_tpu_torch.dist import collectives
+
+    calls, nbytes = collectives.CALLS, collectives.BYTES
+    return (f"collectives {dict(calls)} ({sum(calls.values()) / n_lm:.1f} a LM iteration, "
+            f"{sum(calls.values()) / max(n_lm + n_cg, 1):.2f} a LM or CG iteration); payload "
+            f"bytes {dict(nbytes)} ({sum(nbytes.values()) / n_lm / 1e3:.1f} kB a LM iteration)")
+
+
+def _same_log(label, st, ref, rtol):
+    """The cost log and CG counts of st against ref's: bitwise, or within
+    rtol with equal CG counts; returns a note saying which."""
+    c, c_ref = st.costs.cpu().numpy(), ref.costs.cpu().numpy()
+    cg, cg_ref = st.cg_iters.cpu().numpy(), ref.cg_iters.cpu().numpy()
+    if np.array_equal(c, c_ref) and np.array_equal(cg, cg_ref):
+        return "bitwise equal"
+    rel = float(np.max(np.abs(c.astype(np.float64) - c_ref) / np.abs(c_ref)))
+    if not (rel <= rtol and np.array_equal(cg, cg_ref)):
+        raise AssertionError(f"{label}: costs {c.tolist()} vs {c_ref.tolist()} (rel {rel:.3e}, "
+                             f"gate {rtol}), CG {cg.tolist()} vs {cg_ref.tolist()}")
+    return f"not bitwise: max rel {rel:.3e} (gate {rtol}), CG counts equal"
+
+
+def phase_dist_venice(smi, venice, main_costs) -> dict:
+    """The distributed pcg route (solve_sharded_cm with the kernels) on the
+    Venice-scale scene in a world of one rank over NCCL, with and without
+    the camera partition: the same cost log and CG counts as [pcg venice]
+    (one shard holds the whole problem, and a one-rank sum is the value
+    itself), launches equal to the logs; then solve_sharded's dense route on
+    the headline scene, its projection kernel held to plain on the shard.
+    Returns {kernel: launches}."""
+    from pysfm_tpu_torch import dist
+    from pysfm_tpu_torch.dist import collectives, multihost
+    from pysfm_tpu_torch.dist.sharded_lm import _local_problem
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver import LMConfig
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
+
+    p, st_single, secs_single = venice
+    multihost.initialize(f"localhost:{multihost.free_port()}", 1, 0, backend="nccl",
+                         device="cuda:0", timeout=DIST_TIMEOUT)
+    mesh = multihost.global_mesh(device="cuda:0")
+    # NCCL builds its communicator at the first collective: out of the timings.
+    _, t_nccl = _timed(lambda: collectives.psum(torch.ones(1, device="cuda:0"), mesh))
+    (local, gops), t_put = _timed(
+        lambda: dist.device_put_sharded_cm(dist.shard_cm_problem(p, 1), mesh))
+    cfg = LMConfig(max_iters=VENICE_ITERS, **NO_TOL, **PCG_VENICE)
+    n_single = int(st_single.n_iters)
+    counts = dict.fromkeys(spmv.LAUNCHES, 0)
+    for cam_axis in (False, True):
+        label = f"dist venice{' cam_axis' if cam_axis else ''}"
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        collectives.reset_counts()
+        (_, st), secs = _timed(
+            lambda: dist.solve_sharded_cm(local, gops, mesh, cfg, cam_axis=cam_axis))
+        run = _check_counts(label, cfg, st)
+        for k in counts:
+            counts[k] += run[k]
+        note = _same_log(label, st, st_single, DIST_RTOL_VENICE)
+        n, n_cg = int(st.n_iters), int(st.cg_iters.sum())
+        print(f"[{label}] world of 1 (nccl), C={p.n_cameras} P={p.n_points} M={p.n_obs}: "
+              f"cost log and CG counts against [pcg venice]: {note}; launches {run} == "
+              f"LM/CG logs; {1e3 * secs / n:.1f} ms per LM iteration ([pcg venice] "
+              f"{1e3 * secs_single / n_single:.1f}); {_collectives_note(n, n_cg)}; max memory "
+              f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+    print(f"[dist venice] first NCCL collective (communicator set-up) {t_nccl:.3f} s; "
+          f"shard_cm_problem + device_put_sharded_cm (host partition, kernel layout) "
+          f"{t_put:.3f} s")
+
+    # solve_sharded's dense route (cm, f32 on the card: the projection kernel).
+    pm = synthetic.make_scene(**MAIN_SCENE, device="cuda").problem
+    sp = dist.device_put_sharded(dist.shard_problem(pm, 1), mesh)
+    err, ok = _kernel_vs_plain(_local_problem(sp))
+    if not ok:
+        raise AssertionError(f"dist venice dense: projection kernel vs plain on the shard, "
+                             f"max err {err}")
+    dcfg = LMConfig(max_iters=N_ITERS, **NO_TOL)
+    _reset_counts()
+    (_, st), secs = _timed(lambda: dist.solve_sharded(sp, mesh, dcfg))
+    launches = proj.LAUNCHES
+    if launches != int(st.n_iters) or any(spmv.LAUNCHES.values()):
+        raise AssertionError(f"dist venice dense: projection kernel launched {launches} times "
+                             f"in {int(st.n_iters)} iterations, pcg kernels {spmv.LAUNCHES}")
+    c = st.costs.cpu().numpy()
+    rel = float(np.max(np.abs(c.astype(np.float64) - main_costs) / np.abs(main_costs)))
+    if not rel <= DIST_RTOL_VENICE:
+        raise AssertionError(f"dist venice dense: costs vs [main] rel {rel} "
+                             f"(gate {DIST_RTOL_VENICE})")
+    print(f"[dist venice] solve_sharded dense cm, headline scene M={pm.n_obs}, world of 1: "
+          f"projection kernel vs plain on the shard max abs err {err:.3e}; {launches} launches "
+          f"in {int(st.n_iters)} LM iterations; costs vs [main] "
+          f"{'bitwise equal' if rel == 0.0 else f'max rel {rel:.3e}'} (gate "
+          f"{DIST_RTOL_VENICE}); {1e3 * secs / int(st.n_iters):.2f} ms per LM iteration | {smi}")
+    multihost.shutdown()
+    return {"proj_cm": launches, **counts}
+
+
+def _dist_rank(mesh, dtype_name):
+    """One rank of [dist ranks]: this rank's shard of DIST_SCENE on the
+    card; in f32 the kernel route with and without the camera partition
+    (launches checked against the logs on this rank), and on rank 0 the
+    five kernels of the path held to their plain versions on the shard's
+    own layout; in f64 the plain route.  Returns the logs and counts."""
+    from pysfm_tpu_torch import dist
+    from pysfm_tpu_torch.dist import collectives, multihost
+    from pysfm_tpu_torch.dist.sharded_cm import _local_cm
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver import LMConfig
+    from pysfm_tpu_torch.solver.kernels import spmv
+
+    dtype = getattr(np, dtype_name)
+    cmp = synthetic.make_bal_scene(**{**DIST_SCENE, "dtype": dtype}, device=mesh.device).problem
+    kernels = dtype == np.float32
+    local, gops = multihost.shard_cm_problem_multihost(cmp, mesh, with_grouped=kernels)
+    cfg = LMConfig(**DIST_CFG)
+    n_obs = int(local.pt_obs_maskT[0].sum())
+    out = {"rank": mesh.rank, "n_obs": n_obs, "runs": {}}
+    # One LM iteration first: the rank's CUDA libraries load out of the timings.
+    dist.solve_sharded_cm(local, gops, mesh, dataclasses.replace(cfg, max_iters=1))
+    for cam_axis in ((False, True) if kernels else (False,)):
+        _reset_counts()
+        collectives.reset_counts()
+        (_, st), secs = _timed(
+            lambda: dist.solve_sharded_cm(local, gops, mesh, cfg, cam_axis=cam_axis))
+        if kernels:
+            counts = _check_counts(f"dist ranks rank {mesh.rank} cam_axis={cam_axis}", cfg, st)
+        elif any(spmv.LAUNCHES.values()):
+            raise AssertionError(f"dist ranks f64: the plain route launched {spmv.LAUNCHES}")
+        else:
+            counts = dict(spmv.LAUNCHES)
+        n, n_cg = int(st.n_iters), int(st.cg_iters.sum())
+        out["runs"][cam_axis] = dict(costs=st.costs.cpu().numpy(),
+                                     cg=st.cg_iters.cpu().numpy(), counts=counts, secs=secs,
+                                     collectives=_collectives_note(n, n_cg))
+    if kernels and mesh.rank == 0:
+        lp = _local_cm(local)
+        args, kw = _eqs_args(lp, gops)
+        eqs, b_rows, b_cam = spmv.build_eqs(*args, **kw)
+        pairs = _spmv_pairs(lp, gops, eqs, b_rows, b_cam)
+        out["kernel_err"] = {name: _check_pair(name, *pairs[name], False)
+                             for name in ("build_eqs", "cost", "hcpT_x", "hcp_w",
+                                          "precond_diag")}
+        out["kernel_err"]["cost"] = max(out["kernel_err"]["cost"],
+                                        _cost_checks("dist ranks", lp, gops))
+    return out
+
+
+def phase_dist_ranks(smi) -> dict:
+    """Two ranks on the one card over gloo with CUDA tensors ([bal io]'s
+    scene, ~313k observations a rank): f32 with the kernels (with and
+    without the camera partition) against the single-device kernel solve,
+    f64 on the plain route against the single-device f64 solve (equal CG
+    counts); the kernels of the path held to plain on rank 0's shard.
+    Returns {kernel: launches over both ranks}."""
+    from pysfm_tpu_torch.dist import launch
+    from pysfm_tpu_torch.pipeline import synthetic
+    from pysfm_tpu_torch.solver import LMConfig, solve
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops
+
+    cfg = LMConfig(**DIST_CFG)
+    counts = dict.fromkeys(SPMV_KERNELS, 0)
+    for dtype_name, rtol in (("float32", DIST_RTOL_F32), ("float64", DIST_RTOL_F64)):
+        cmp = synthetic.make_bal_scene(**{**DIST_SCENE, "dtype": getattr(np, dtype_name)},
+                                       device="cuda").problem
+        gops = make_grouped_ops(cmp) if dtype_name == "float32" else None
+        (_, ref), secs_ref = _timed(lambda: solve(cmp, cfg, gops=gops))
+        del cmp, gops
+        torch.cuda.empty_cache()
+        (ranks), secs = _timed(lambda: launch.spawn(
+            _dist_rank, 2, (dtype_name,), backend="gloo", device="cuda:0",
+            timeout=DIST_TIMEOUT))
+        c_ref, cg_ref = ref.costs.cpu().numpy().astype(np.float64), ref.cg_iters.cpu().numpy()
+        n = int(ref.n_iters)
+        for cam_axis, run in ranks[0]["runs"].items():
+            for r in ranks[1:]:
+                if not np.array_equal(r["runs"][cam_axis]["costs"], run["costs"]):
+                    raise AssertionError("dist ranks: the ranks' cost logs differ")
+            rel = float(np.max(np.abs(run["costs"] - c_ref) / np.abs(c_ref)))
+            same_cg = bool(np.array_equal(run["cg"], cg_ref))
+            if not rel <= rtol or (dtype_name == "float64" and not same_cg):
+                raise AssertionError(
+                    f"dist ranks {dtype_name} cam_axis={cam_axis}: costs rel {rel:.3e} (gate "
+                    f"{rtol}), CG {run['cg'].tolist()} vs single device {cg_ref.tolist()}")
+            for r in ranks:
+                for k, v in r["runs"][cam_axis]["counts"].items():
+                    counts[k] += v
+            launched = (f"launches by rank {[r['runs'][cam_axis]['counts'] for r in ranks]} == "
+                        "each rank's LM/CG logs" if dtype_name == "float32"
+                        else "no kernel launch (the f64 plain route)")
+            print(f"[dist ranks] {dtype_name} cam_axis={cam_axis}, 2 ranks on cuda:0 (gloo), "
+                  f"P={DIST_SCENE['n_points']}, M={ranks[0]['n_obs']} + "
+                  f"{ranks[1]['n_obs']} observations by rank: costs vs single device max rel "
+                  f"{rel:.3e} (gate {rtol}), CG counts equal {same_cg} ({run['cg'].tolist()}); "
+                  f"{launched}; {1e3 * run['secs'] / n:.1f} ms per LM iteration "
+                  f"(single device {1e3 * secs_ref / n:.1f}); rank 0 {run['collectives']}; "
+                  f"gloo takes reduce_scatter / all_gather as all_reduce "
+                  f"(collectives._scatter_by_all_reduce / _gather_by_all_reduce) | {smi}")
+        if dtype_name == "float32":
+            print(f"[dist ranks] rank 0's shard, kernel vs plain max abs err (KERNEL_TOL "
+                  f"{KERNEL_TOL}): {ranks[0]['kernel_err']}; world of 2 spawned, solved and "
+                  f"joined in {secs:.1f} s")
     return counts
 
 
@@ -1752,13 +1987,16 @@ def main() -> int:
     print(f"[scene] 50 cams / 10k pts / {p.n_obs} obs, f32 on "
           f"{torch.cuda.get_device_name(0)}, built in {time.perf_counter() - t0:.2f} s")
     kstats = phase_kernel_main(p, smi)
-    launches = phase_main(p)
+    launches, main_costs = phase_main(p)
     phase_speed(p, smi)
     std = phase_std(p, smi)
     phase_spmv_small()
     pcg_stats, pcg_counts = phase_pcg_main(smi)
     proj_venice = phase_proj_venice(smi)
-    venice_stats, venice_counts = phase_pcg_venice(smi)
+    venice_stats, venice_counts, venice = phase_pcg_venice(smi)
+    dist_venice = phase_dist_venice(smi, venice, main_costs)
+    del venice
+    dist_ranks = phase_dist_ranks(smi)
     io_counts = phase_bal_io(smi)
     incr_launches = phase_incremental(smi)
     incr_counts = dict(spmv.LAUNCHES)
@@ -1769,7 +2007,8 @@ def main() -> int:
     # Launches on each main path, each read just after the path ran with
     # the counts set to 0 just before it.
     proj_paths = {"main": launches, "std": std["launches"], "incremental": incr_launches,
-                  "incremental scale": scale_launches}
+                  "incremental scale": scale_launches, "dist venice": dist_venice["proj_cm"],
+                  "dist ranks": 0}
     kernels = [{
         "name": "proj_cm",
         "route": "cuda",
@@ -1785,7 +2024,8 @@ def main() -> int:
         st = pcg_stats[name]
         paths = {"pcg main": pcg_counts[name], "pcg venice": venice_counts[name],
                  "bal io": io_counts[name], "incremental": incr_counts[name],
-                 "incremental scale": scale_counts[name]}
+                 "incremental scale": scale_counts[name], "dist venice": dist_venice[name],
+                 "dist ranks": dist_ranks[name]}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(paths.values()),
                         "launches_by_path": paths,

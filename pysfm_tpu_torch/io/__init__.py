@@ -5,8 +5,8 @@
 - :mod:`pysfm_tpu_torch.io.checkpoint` — mid-solve checkpoint / resume, in
   the JAX package's file format
 - :mod:`pysfm_tpu_torch.io.native` — the C++ tokenizer and BAL writer
-
-The JAX package's ``io.viz`` (matplotlib plots) is not ported yet.
+- :mod:`pysfm_tpu_torch.io.viz` — camera frusta / point cloud / overlay
+  plots (matplotlib, imported when a plot is drawn)
 """
 
 from pysfm_tpu_torch.io.bal import load_bal, save_bal

@@ -20,6 +20,13 @@ iteration (``done``); the pcg loop reads ``done`` and ``ok`` together in one
 transfer per LM iteration, plus one ``go`` flag per CG iteration
 (``pcg.pcg_solve``).  Removing those reads (CUDA graph capture) is later
 work.
+
+:func:`cm_lm_loop` also runs distributed (``group``, a
+:class:`~pysfm_tpu_torch.dist.mesh.Mesh`; the JAX loop's ``axis_name``):
+``cmp`` and ``gops`` are then one rank's point shard with the camera state
+replicated, every camera-sized or scalar control quantity is summed (or
+maxed) over the ranks, and so every rank reads the same values at its host
+reads and takes the same accept / reject / stop decisions.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from pysfm_tpu_torch.dist.collectives import pmax, psum
 from pysfm_tpu_torch.geometry import so3
 from pysfm_tpu_torch.problem import cm
 from pysfm_tpu_torch.problem import problem as problem_mod
@@ -296,9 +304,11 @@ def cm_lm_loop(
     lam_init=None,
     nu_init=None,
     gops=None,
+    group=None,
+    cam_shards: int = 0,
     dc_init=None,
 ) -> Tuple[cm.CMProblem, LMStats]:
-    """The component-major LM loop, single device.
+    """The component-major LM loop.
 
     Same control flow as the dense loop (Nielsen damping, predicated
     accept/reject), with the CG step of ``solver/pcg.py``, the
@@ -312,6 +322,16 @@ def cm_lm_loop(
     run through ``solver/kernels/spmv.py``.  As in the JAX package, ``gops``
     is dropped for a non-f32 problem: the kernels compute in f32, and an
     f64 problem keeps its precision on the plain route (``solver/scale.py``).
+
+    With ``group`` this is the distributed loop of
+    :func:`pysfm_tpu_torch.dist.solve_sharded_cm`: ``cmp`` and ``gops`` are
+    this rank's shard, the cost, the gradient norm, the predicted reduction
+    and the step norm are reduced over the ranks, and the CG step sums its
+    camera partials (``pcg``).  ``cam_shards`` > 0 (with ``group``) also
+    partitions the camera axis of the reduced solve
+    (:class:`~pysfm_tpu_torch.solver.pcg.CamShard`); the camera parameters
+    stay replicated.  With ``group=None`` nothing is reduced and no
+    collective runs.
     """
     dtype, dev = cmp.dtype, cmp.device
     if gops is not None and dtype != torch.float32:
@@ -322,13 +342,16 @@ def cm_lm_loop(
     def scalar(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
 
-    def cost_fn(q):
+    def cost_local(q):
         if gops is not None:
             return spmv.cost(
                 gops, cm.cam_table(q), q.X3, q.robust_scale,
                 model=q.camera_model, robust=q.robust,
             ).to(dtype)
         return scale.cost_scale_cm(q, config.obs_chunk)
+
+    def cost_fn(q):
+        return psum(cost_local(q), group)
 
     def build_lin(q):
         """(eqs, b_rows, b_cam) linearized at q; the rows are None off the
@@ -374,7 +397,8 @@ def cm_lm_loop(
         eqs, b_rows, b_cam = lin
         gops_it = None if gops is None else gops.replace(b_rows=b_rows, b_cam=b_cam)
         grad_inf = torch.maximum(
-            torch.max(torch.abs(eqs.g_c)), torch.max(torch.abs(eqs.g_p))
+            torch.max(torch.abs(psum(eqs.g_c, group))),
+            pmax(torch.max(torch.abs(eqs.g_p)), group),
         )
         if config.cg_forcing == "ew":
             # Eisenstat-Walker choice 2 (gamma = 0.9, alpha = 2) on the
@@ -404,10 +428,12 @@ def cm_lm_loop(
             gops=gops_it,
             q_tol=config.cg_q_tol,
             precond_terms=config.cg_precond_terms,
+            group=group,
+            cam_shards=cam_shards,
         )
         cand = cm.apply_update_cm(p, dc, dp3)
         new_cost = cost_fn(cand)
-        pred = scale.predicted_reduction_scale_cm(eqs, lam, dc, dp3)
+        pred = scale.predicted_reduction_scale_cm(eqs, lam, dc, dp3, group=group)
         actual = cost - new_cost
         rho = actual / torch.clamp(pred, min=tiny)
         ok = torch.isfinite(new_cost) & (actual > 0) & (pred > 0)
@@ -430,7 +456,7 @@ def cm_lm_loop(
         )
         cost_next = torch.where(ok, new_cost, cost)
 
-        step_norm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dp3 * dp3))
+        step_norm = torch.sqrt(torch.sum(dc * dc) + psum(torch.sum(dp3 * dp3), group))
         converged = (
             (grad_inf < config.tol_grad)
             | (ok & (actual < config.tol_cost_rel * cost))
@@ -447,7 +473,8 @@ def cm_lm_loop(
         dc_prev, eta, grad_prev = dc, eta_i, grad_inf
         it += 1
         # The one host read of the LM iteration: stop once converged, and
-        # whether to rebuild the linearization next time.
+        # whether to rebuild the linearization next time.  Under a group
+        # both come from reduced values, the same on every rank.
         done, prev_ok = torch.stack([converged, ok]).tolist()
         if done:
             break

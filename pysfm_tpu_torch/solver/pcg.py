@@ -1,9 +1,7 @@
-"""Matrix-free Schur solve: preconditioned CG on the reduced camera system,
-single device.
+"""Matrix-free Schur solve: preconditioned CG on the reduced camera system.
 
-Port of :mod:`pysfm_tpu.solver.pcg` (without ``CamShard`` and the
-``axis_name`` branches, which come with the distributed port).  The reduced
-system ``S dc = rhs`` is solved without forming S:
+Port of :mod:`pysfm_tpu.solver.pcg`.  The reduced system ``S dc = rhs`` is
+solved without forming S:
 
     S x = Hcc_aug x - Hcp (Hpp_aug^-1 (Hcp^T x))
 
@@ -24,9 +22,19 @@ vectors are component-major ``[CP, C]``.  The preconditioner is the exact
 block-Jacobi diagonal of S, inverted by a batched Cholesky that falls back
 to the damped ``Hcc`` block where a block is not positive definite.
 
+Distributed (``group``, a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`, where
+the JAX functions take ``axis_name``): points, observations and the kernel
+operands are this rank's shard; every S-matvec sums the camera-sized
+``[CP, C]`` partial over the ranks (one collective per CG iteration), the
+preconditioner's partial once per LM iteration.  :class:`CamShard`
+partitions the camera axis of the reduced solve as well.
+
 The JAX package runs CG inside one ``lax.while_loop``.  Here it is a host
 loop over device tensors; its only host read per iteration is the ``go``
-flag (one bool), so one CG iteration costs one device-to-host sync.
+flag (one bool), so one CG iteration costs one device-to-host sync.  Under
+a group that flag comes from summed (hence equal) values only, so every
+rank leaves the loop at the same iteration: a rank that decided from a
+local value would leave the others waiting in a collective.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from pysfm_tpu_torch.dist.collectives import all_gather, psum, psum_scatter
 from pysfm_tpu_torch.solver import scale as scale_mod
 from pysfm_tpu_torch.solver import schur
 from pysfm_tpu_torch.solver.kernels import spmv
@@ -66,6 +75,56 @@ class PCGSystem(NamedTuple):
     D_blk: Optional[torch.Tensor] = None  # [C, CP, CP]
 
 
+class CamShard(NamedTuple):
+    """The camera-axis partition of the reduced solve.
+
+    On a mesh of ``n_shards`` ranks, rank ``k`` owns camera rows
+    ``[k*n_local, (k+1)*n_local)`` of the padded range ``n_shards * n_local
+    >= n_cams``.  The damped camera blocks, the reduced rhs, the
+    block-Jacobi inverse and the CG vectors live only on their owner rank;
+    each rank's per-camera partials reach the owners through one
+    reduce-scatter (the point-parallel sum and the routing in one
+    collective), and the matvec all-gathers the ``[CP, C]`` iterate.  The
+    pad rows beyond ``n_cams`` are zero: their blocks become the identity
+    (``augment_block_diag``'s unit fill) and their rhs is zero, so CG keeps
+    them zero."""
+
+    group: object   # dist.mesh.Mesh
+    n_cams: int     # global C (unpadded)
+    n_local: int    # padded camera rows a rank (ceil(C / n_shards))
+    n_shards: int
+
+    @property
+    def n_pad(self) -> int:
+        return self.n_local * self.n_shards
+
+
+def make_cam_shard(group, n_cams: int, n_shards: int) -> CamShard:
+    return CamShard(group=group, n_cams=n_cams, n_local=-(-n_cams // n_shards),
+                    n_shards=n_shards)
+
+
+def _scatter_cols(x: torch.Tensor, cam: CamShard) -> torch.Tensor:
+    """[cp, C] rank partial -> [cp, n_local] owner columns (summed)."""
+    pad = cam.n_pad - x.shape[1]
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return psum_scatter(x, cam.group, dim=1)
+
+
+def _scatter_rows(x: torch.Tensor, cam: CamShard) -> torch.Tensor:
+    """[C, ...] rank partial -> [n_local, ...] owner rows (summed)."""
+    pad = cam.n_pad - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return psum_scatter(x, cam.group, dim=0)
+
+
+def _gather_x(x_local: torch.Tensor, cam: CamShard) -> torch.Tensor:
+    """[cp, n_local] shard -> the full [cp, C] (unpadded) on every rank."""
+    return all_gather(x_local, cam.group, dim=1)[:, :cam.n_cams].contiguous()
+
+
 def _eqs_to_cm(eqs: schur.NormalEqs) -> scale_mod.ScaleEqs:
     """View a standard-layout NormalEqs as component-major (the
     segment-sum route's input for small problems and tests)."""
@@ -88,6 +147,8 @@ def build_pcg_system(
     cam_obs_mask: Optional[torch.Tensor] = None,
     gops=None,
     keep_D: bool = False,
+    group=None,
+    cam: Optional[CamShard] = None,
 ) -> PCGSystem:
     """Damp, invert point blocks, build the reduced rhs and the block-Jacobi
     preconditioner: everything except S itself.
@@ -96,11 +157,21 @@ def build_pcg_system(
     :class:`schur.NormalEqs` (converted).  The route: the kernels when
     ``gops`` is given and the coupling rows live only in ``gops.b_rows`` /
     ``gops.b_cam`` (``eqs.B_cm is None``, as the K_E build returns them),
-    else the visibility tables when given, else segment sums."""
+    else the visibility tables when given, else segment sums.
+
+    Under ``group`` the camera partials (Hcc, g_c, the reduced rhs, the
+    preconditioner's diagonal) are summed over the ranks.  With ``cam`` the
+    system holds only this rank's ``cam.n_local`` camera rows: the partials
+    are summed and routed to their owners by a reduce-scatter instead."""
     if isinstance(eqs, schur.NormalEqs):
         eqs = _eqs_to_cm(eqs)
     C, cp, _ = eqs.Hcc.shape
-    Hcc_aug = schur.augment_block_diag(eqs.Hcc, lam)
+    Hcc, g_c = eqs.Hcc, eqs.g_c
+    if cam is not None:
+        Hcc, g_c = _scatter_rows(Hcc, cam), _scatter_rows(g_c, cam)
+    else:
+        Hcc, g_c = psum(Hcc, group), psum(g_c, group)
+    Hcc_aug = schur.augment_block_diag(Hcc, lam)
     hinv6 = scale_mod.sym6_inv(scale_mod.augment6(eqs.hpp6, lam))
 
     use_grouped = gops is not None and eqs.B_cm is None
@@ -111,7 +182,7 @@ def build_pcg_system(
     if use_grouped:
         # Kernel route: the coupling rows live only in gops, so the
         # rhs and the exact block-Jacobi diagonal come from the kernels.
-        rhs_red = spmv.hcp_w(gops, u0, C, cp=cp).to(eqs.g_c.dtype)
+        rhs_red = spmv.hcp_w(gops, u0, C, cp=cp).to(g_c.dtype)
         D = spmv.precond_diag(gops, hinv6, C, cp=cp).to(Hcc_aug.dtype)
     elif use_tables:
         pmask_t = pt_obs_maskT.to(eqs.B_cm.dtype)               # [K, P]
@@ -152,7 +223,11 @@ def build_pcg_system(
         D = torch.zeros((C, cp, cp), dtype=D_m.dtype, device=D_m.device)
         D.index_add_(0, obs_cam, D_m)
         B_keep, oc_keep, op_keep = eqs.B_cm, obs_cam, obs_pt
-    rhs = (-eqs.g_c.T + rhs_red).contiguous()                   # [cp, C]
+    if cam is not None:
+        rhs_red, D = _scatter_cols(rhs_red, cam), _scatter_rows(D, cam)
+    else:
+        rhs_red, D = psum(rhs_red, group), psum(D, group)
+    rhs = (-g_c.T + rhs_red).contiguous()            # [cp, C] (or [cp, n_local])
     D = Hcc_aug - D
     # Batched Cholesky inverse of the [CP, CP] diagonal blocks; symmetrize
     # first (summation order) and fall back to the damped Hcc block where a
@@ -206,12 +281,23 @@ def _blockmv(H: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return xp.matvec(H, x.T).T
 
 
-def schur_matvec(sys: PCGSystem, x: torch.Tensor) -> torch.Tensor:
-    """y = S x with x, y [CP, C] component-major; S never formed."""
+def schur_matvec(sys: PCGSystem, x: torch.Tensor, group=None,
+                 cam: Optional[CamShard] = None) -> torch.Tensor:
+    """y = S x with x, y [CP, C] component-major; S never formed.
+
+    Under ``group`` the coupling term is summed over the ranks.  With
+    ``cam`` x and y are this rank's [CP, n_local] camera shard: the iterate
+    is all-gathered for the coupling term, and one reduce-scatter sums the
+    ranks' partials and routes camera rows to their owners."""
+    if cam is not None:
+        x_full = _gather_x(x, cam)
+        w = scale_mod.sym6_mv(sys.hinv6, _hcpT_x(sys, x_full))  # [3, P]
+        z = _scatter_cols(_hcp_w(sys, w, cam.n_cams), cam)
+        return _blockmv(sys.Hcc_aug, x) - z
     C = sys.Hcc_aug.shape[0]
     u = _hcpT_x(sys, x)
     w = scale_mod.sym6_mv(sys.hinv6, u)                         # [3, P]
-    z = _hcp_w(sys, w, C)
+    z = psum(_hcp_w(sys, w, C), group)
     return _blockmv(sys.Hcc_aug, x) - z
 
 
@@ -219,14 +305,15 @@ def _precond(sys: PCGSystem, r: torch.Tensor) -> torch.Tensor:
     return _blockmv(sys.M_inv, r)
 
 
-def _precond_power(sys: PCGSystem, r: torch.Tensor, terms: int) -> torch.Tensor:
+def _precond_power(sys: PCGSystem, r: torch.Tensor, terms: int, group=None,
+                   cam: Optional[CamShard] = None) -> torch.Tensor:
     """Truncated power-series preconditioner: with S = D - O and D the exact
     block-Jacobi diagonal, ``z_m = D^-1 (r + O z_{m-1})`` where
     ``O z = D z - S z`` costs one S-matvec per extra term.  ``terms=1`` is
     block-Jacobi.  Needs ``sys.D_blk``."""
     z = _precond(sys, r)
     for _ in range(terms - 1):
-        Sz = schur_matvec(sys, z)
+        Sz = schur_matvec(sys, z, group, cam)
         Dz = _blockmv(sys.D_blk, z)
         z = _precond(sys, r + Dz - Sz)
     return z
@@ -245,6 +332,8 @@ def pcg_solve(
     q_tol: float = 0.0,
     precond_terms: int = 1,
     return_iters: bool = False,
+    group=None,
+    cam: Optional[CamShard] = None,
 ):
     """Preconditioned CG for S dc = rhs; returns dc [CP, C] (or
     ``(dc, n_iters)`` with ``return_iters=True``, ``n_iters`` an int).
@@ -256,13 +345,24 @@ def pcg_solve(
     ``precond_terms`` > 1 applies the power-series preconditioner.  A
     direction with ``p'Sp <= 0`` (f32 rounding near convergence) stops the
     loop and keeps the current iterate.
+
+    Under ``group`` (and ``cam``) every quantity that enters the CG scalars
+    and the ``go`` flag is summed over the ranks, so all ranks take the
+    same iterations.  With ``cam`` the vectors are this rank's camera shard
+    and the returned dc is all-gathered to the full [CP, C].
     """
     b = sys.rhs
     tiny = torch.finfo(b.dtype).tiny
 
+    def gdot(a, bb):
+        # Camera-sharded vectors are disjoint shards: the global dot is
+        # the sum of the local ones.
+        d = _dot(a, bb)
+        return d if cam is None else psum(d, cam.group)
+
     def precond(r):
         if precond_terms > 1:
-            return _precond_power(sys, r, precond_terms)
+            return _precond_power(sys, r, precond_terms, group, cam)
         return _precond(sys, r)
 
     if x0 is None:
@@ -270,31 +370,36 @@ def pcg_solve(
         r = b                                  # x0 = 0 => r = b - S x0 = b
         Q = torch.zeros((), dtype=b.dtype, device=b.device)
     else:
+        if cam is not None:
+            # The warm start arrives full [CP, C]; take this rank's columns.
+            x0 = torch.nn.functional.pad(x0, (0, cam.n_pad - x0.shape[1]))
+            k = cam.group.rank * cam.n_local
+            x0 = x0[:, k:k + cam.n_local].contiguous()
         x = x0
-        r = b - schur_matvec(sys, x)
-        Q = -0.5 * (_dot(x, b) + _dot(x, r))   # Q(x0), with S x0 = b - r
+        r = b - schur_matvec(sys, x, group, cam)
+        Q = -0.5 * (gdot(x, b) + gdot(x, r))   # Q(x0), with S x0 = b - r
     z = precond(r)
     p = z
-    rz = _dot(r, z)
-    thresh = tol * torch.clamp(torch.sqrt(_dot(b, b)), min=1e-30)
+    rz = gdot(r, z)
+    thresh = tol * torch.clamp(torch.sqrt(gdot(b, b)), min=1e-30)
     done = torch.zeros((), dtype=torch.bool, device=b.device)
     dQ = torch.full((), torch.finfo(b.dtype).max, dtype=b.dtype, device=b.device)
     it = 0
     while it < max_iters:
-        go = ~done & (torch.sqrt(_dot(r, r)) > thresh)
+        go = ~done & (torch.sqrt(gdot(r, r)) > thresh)
         if q_tol > 0.0 and it > 0:
             go = go & ~(it * dQ <= q_tol * torch.abs(Q))
         # The one host read of the CG iteration.
         if not bool(go):
             break
-        Sp = schur_matvec(sys, p)
-        pSp = _dot(p, Sp)
+        Sp = schur_matvec(sys, p, group, cam)
+        pSp = gdot(p, Sp)
         bad = ~(torch.isfinite(pSp) & (pSp > 0))
         alpha = torch.where(bad, torch.zeros_like(rz), rz / torch.clamp(pSp, min=tiny))
         x = x + alpha * p
         r = r - alpha * Sp
         z = precond(r)
-        rz_new = _dot(r, z)
+        rz_new = gdot(r, z)
         beta = rz_new / torch.clamp(rz, min=tiny)
         p = z + beta * p
         dQ = 0.5 * alpha * rz                  # Q_{i-1} - Q_i (exact)
@@ -302,6 +407,8 @@ def pcg_solve(
         rz = rz_new
         done = bad
         it += 1
+    if cam is not None:
+        x = _gather_x(x, cam)
     if return_iters:
         return x, it
     return x
@@ -330,6 +437,8 @@ def solve_step_pcg_cm3(
     gops=None,
     q_tol: float = 0.0,
     precond_terms: int = 1,
+    group=None,
+    cam_shards: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """One damped step with the point step kept component-major: returns
     ``(dc [C, CP], dp3 [3, P], n_cg)``.  ``eqs`` is a ScaleEqs or a
@@ -337,17 +446,25 @@ def solve_step_pcg_cm3(
 
     ``dc_warm`` ([C, CP]) warm-starts CG with the previous LM iteration's
     camera step; ``gops`` (a :class:`spmv.GroupedOps` with the rows set)
-    routes the products with Hcp through the kernels."""
+    routes the products with Hcp through the kernels.  ``group`` sums the
+    camera partials over the ranks; ``cam_shards`` > 0 (with ``group``)
+    partitions the camera axis of the reduced solve (:class:`CamShard`),
+    and the returned dc is still the full [C, CP] step."""
+    cam = None
+    if cam_shards > 0:
+        if group is None:
+            raise ValueError("cam_shards requires group")
+        cam = make_cam_shard(group, eqs.Hcc.shape[0], cam_shards)
     sys = build_pcg_system(
         eqs, lam, obs_cam, obs_pt,
         pt_obsT=pt_obsT, pt_obs_maskT=pt_obs_maskT,
         cam_obs=cam_obs, cam_obs_mask=cam_obs_mask,
-        gops=gops, keep_D=precond_terms > 1,
+        gops=gops, keep_D=precond_terms > 1, group=group, cam=cam,
     )
     x0 = None if dc_warm is None else dc_warm.T.contiguous()
     dc, n_cg = pcg_solve(
         sys, tol=tol, max_iters=max_iters, x0=x0, q_tol=q_tol,
-        precond_terms=precond_terms, return_iters=True,
+        precond_terms=precond_terms, return_iters=True, group=group, cam=cam,
     )
     dp3 = back_substitute(sys, dc)
     return dc.T.contiguous(), dp3, n_cg
@@ -365,11 +482,12 @@ def solve_step_pcg(
     pt_obs_maskT: Optional[torch.Tensor] = None,
     cam_obs: Optional[torch.Tensor] = None,
     cam_obs_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped step in the standard layout: ``(dc [C, CP], dp [P, 3])``."""
     dc, dp3, _ = solve_step_pcg_cm3(
         eqs, lam, obs_cam, obs_pt, tol=tol, max_iters=max_iters,
         pt_obsT=pt_obsT, pt_obs_maskT=pt_obs_maskT,
-        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask,
+        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask, group=group,
     )
     return dc, dp3.T

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pysfm_tpu_torch.dist.collectives import psum
 from pysfm_tpu_torch.problem import cm
 from pysfm_tpu_torch.problem import robust as robust_mod
 
@@ -206,21 +207,26 @@ def cost_scale(p, obs_chunk: int = 0) -> torch.Tensor:
 
 
 def predicted_reduction_scale(
-    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor
+    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor, group=None
 ) -> torch.Tensor:
     """:func:`predicted_reduction_scale_cm` for a standard-layout point step
     ``dp [P, 3]``."""
-    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T)
+    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T, group=group)
 
 
 def predicted_reduction_scale_cm(
-    eqs: ScaleEqs, lam, dc: torch.Tensor, dp3: torch.Tensor
+    eqs: ScaleEqs, lam, dc: torch.Tensor, dp3: torch.Tensor, group=None
 ) -> torch.Tensor:
-    """The LM model reduction of the step ``(dc [C, CP], dp3 [3, P])``."""
-    d_cc = torch.diagonal(eqs.Hcc, dim1=-2, dim2=-1)
+    """The LM model reduction of the step ``(dc [C, CP], dp3 [3, P])``.
+
+    Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`) ``eqs``
+    holds this rank's partials: the camera terms use the summed Hcc / g_c,
+    the point terms are summed locally, then over the ranks."""
+    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
+    d_cc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
     d_pp3 = torch.stack([eqs.hpp6[0], eqs.hpp6[2], eqs.hpp6[5]])   # [3, P]
     fill_c = (d_cc == 0).to(d_cc.dtype)
     fill_p = (d_pp3 == 0).to(d_pp3.dtype)
-    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * eqs.g_c)
+    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * g_c)
     pt_term = torch.sum((lam * d_pp3 + fill_p) * dp3 * dp3) - torch.sum(dp3 * eqs.g_p)
-    return 0.5 * (cam_term + pt_term)
+    return 0.5 * (cam_term + psum(pt_term, group))

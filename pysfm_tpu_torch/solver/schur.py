@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from pysfm_tpu_torch.dist.collectives import psum
 from pysfm_tpu_torch.utils import precision as xp
 
 
@@ -207,14 +208,22 @@ def reduce_dense(
     obs_pt: torch.Tensor,
     pt_obs: Optional[torch.Tensor] = None,
     pt_obs_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> SchurSystem:
     """Whitened Schur reduction, dense-W regime: factor the damped
     ``Hpp = L L^T``, ``M = L^-1``, whiten each coupling block
     ``E_m = B_m M_p^T`` before the scatter, then
-    ``S = blockdiag(Hcc_aug) - sum_p V_p V_p^T``."""
+    ``S = blockdiag(Hcc_aug) - sum_p V_p V_p^T``.
+
+    Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`) points and
+    their observations are this rank's shard and the cameras are
+    replicated: Hcc, g_c, the partial S and its rhs are summed over the
+    ranks; point-sized state stays where it is."""
     C, CP, _ = eqs.Hcc.shape
     P = eqs.Hpp.shape[0]
-    Hcc_aug = augment_block_diag(eqs.Hcc, lam)
+    Hcc = psum(eqs.Hcc, group)
+    g_c = psum(eqs.g_c, group)
+    Hcc_aug = augment_block_diag(Hcc, lam)
     Hpp_aug = augment_block_diag(eqs.Hpp, lam)
 
     M3 = inv_lower3x3(chol3x3(Hpp_aug))                          # [P, 3, 3]
@@ -231,14 +240,14 @@ def reduce_dense(
     )                                                            # [M, CP, 3]
     V = scatter_coupling_dense(E, obs_cam, obs_pt, C, P, pt_obs, pt_obs_mask)
     u = xp.matvec(M3, eqs.g_p)                                   # [P, 3]
-    S = -xp.einsum("pas,pbs->ab", V, V)
-    rhs_red = xp.einsum("pas,ps->a", V, u)
+    S = psum(-xp.einsum("pas,pbs->ab", V, V), group)
+    rhs_red = psum(xp.einsum("pas,ps->a", V, u), group)
     # Add the block-diagonal Hcc without a scatter: view S as [C, CP, C, CP].
     eye_c = torch.eye(C, dtype=S.dtype, device=S.device)
     S = (
         S.reshape(C, CP, C, CP) + Hcc_aug[:, :, None, :] * eye_c[:, None, :, None]
     ).reshape(C * CP, C * CP)
-    rhs = -eqs.g_c.reshape(-1) + rhs_red
+    rhs = -g_c.reshape(-1) + rhs_red
     return SchurSystem(S=S, rhs=rhs, M=M3, V=V, u=u)
 
 
@@ -277,9 +286,13 @@ def solve_step_dense(
     obs_pt: torch.Tensor,
     pt_obs: Optional[torch.Tensor] = None,
     pt_obs_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One damped Gauss-Newton step via dense Schur: (dc [C, CP], dp [P, 3])."""
-    system = reduce_dense(eqs, lam, obs_cam, obs_pt, pt_obs, pt_obs_mask)
+    """One damped Gauss-Newton step via dense Schur: (dc [C, CP], dp [P, 3]).
+    Under ``group`` dc is the same on every rank (S and rhs are summed, so
+    every rank solves the same reduced system) and dp is this rank's
+    point shard's step."""
+    system = reduce_dense(eqs, lam, obs_cam, obs_pt, pt_obs, pt_obs_mask, group=group)
     dc = solve_reduced(system)
     dp = back_substitute(system, dc)
     C, CP, _ = eqs.Hcc.shape
@@ -291,13 +304,17 @@ def predicted_reduction(
     lam: torch.Tensor,
     dc: torch.Tensor,
     dp: torch.Tensor,
+    group=None,
 ) -> torch.Tensor:
     """LM model reduction L(0) - L(d) = 0.5 * d^T (lam*D d - g) for the step
-    solving (H + lam D) d = -g with Marquardt scaling D = diag(H) (+ fill)."""
-    d_cc = torch.diagonal(eqs.Hcc, dim1=-2, dim2=-1)
+    solving (H + lam D) d = -g with Marquardt scaling D = diag(H) (+ fill).
+    Under ``group`` the camera terms use the summed Hcc / g_c and the point
+    terms are summed locally, then over the ranks."""
+    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
+    d_cc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
     d_pp = torch.diagonal(eqs.Hpp, dim1=-2, dim2=-1)
     fill_c = (d_cc == 0).to(d_cc.dtype)
     fill_p = (d_pp == 0).to(d_pp.dtype)
-    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * eqs.g_c)
+    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * g_c)
     pt_term = torch.sum((lam * d_pp + fill_p) * dp * dp) - torch.sum(dp * eqs.g_p)
-    return 0.5 * (cam_term + pt_term)
+    return 0.5 * (cam_term + psum(pt_term, group))

@@ -33,6 +33,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from pysfm_tpu_torch.dist.collectives import pmax, psum
 from pysfm_tpu_torch.solver import schur
 from pysfm_tpu_torch.utils import precision as xp
 
@@ -154,11 +155,17 @@ def reduce_cm(
     pt_obs: torch.Tensor,
     pt_obs_mask: torch.Tensor,
     obs_cam: torch.Tensor,
+    group=None,
 ) -> SchurSystemCM:
-    """Whitened Schur reduction in component-major layout."""
+    """Whitened Schur reduction in component-major layout.
+
+    Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`) the
+    camera-sized Hcc / g_c / S / rhs partials are summed over the ranks;
+    point rows stay on their rank."""
     C, cp, _ = eqs.Hcc.shape
     P = eqs.hpp6.shape[1]
-    Hcc_aug = schur.augment_block_diag(eqs.Hcc, lam)
+    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
+    Hcc_aug = schur.augment_block_diag(Hcc, lam)
 
     m6 = _inv_lower6(_chol6(_augment6(eqs.hpp6, lam)))            # [6, P]
     # Whiten the grid-resident coupling blocks: E_s = sum_{s'} B_{s'} M[s,s'],
@@ -197,8 +204,8 @@ def reduce_cm(
     ])                                                            # [3, P]
     ur = u.T.reshape(3 * P)                                       # rows (p*3+s)
 
-    S_perm = -xp.matmul(Vr.T, Vr)                                 # [(d,c),(d',c')]
-    rhs_perm = xp.matvec(Vr.T, ur)
+    S_perm = psum(-xp.matmul(Vr.T, Vr), group)                    # [(d,c),(d',c')]
+    rhs_perm = psum(xp.matvec(Vr.T, ur), group)
     # Permute (d, c) -> (c, d) standard order.
     S = (
         S_perm.reshape(cp, C, cp, C)
@@ -211,7 +218,7 @@ def reduce_cm(
         S.reshape(C, cp, C, cp)
         + Hcc_aug[:, :, None, :] * eye_c[:, None, :, None]
     ).reshape(C * cp, C * cp)
-    rhs = -eqs.g_c.reshape(-1) + rhs_red
+    rhs = -g_c.reshape(-1) + rhs_red
     return SchurSystemCM(S=S, rhs=rhs, m6=m6, Vr=Vr, u=u)
 
 
@@ -237,10 +244,11 @@ def solve_step_cm(
     obs_pt: torch.Tensor,
     pt_obs: torch.Tensor,
     pt_obs_mask: torch.Tensor,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped GN step: returns (dc [C, CP], dp [P, 3])."""
     C, cp, _ = eqs.Hcc.shape
-    system = reduce_cm(eqs, lam, obs_pt, pt_obs, pt_obs_mask, obs_cam)
+    system = reduce_cm(eqs, lam, obs_pt, pt_obs, pt_obs_mask, obs_cam, group=group)
     Ssym = 0.5 * (system.S + system.S.T)
     L = schur._cholesky_nan(Ssym)
     dc = torch.cholesky_solve(system.rhs[:, None], L).reshape(C, cp)
@@ -253,18 +261,24 @@ def predicted_reduction_cm(
     lam: torch.Tensor,
     dc: torch.Tensor,
     dp: torch.Tensor,
+    group=None,
 ) -> torch.Tensor:
-    """The LM model reduction of the step (dc, dp)."""
-    d_cc = torch.diagonal(eqs.Hcc, dim1=-2, dim2=-1)
+    """The LM model reduction of the step (dc, dp); under ``group`` from the
+    summed camera partials and the summed point terms."""
+    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
+    d_cc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
     d_pp = torch.stack([eqs.hpp6[0], eqs.hpp6[2], eqs.hpp6[5]], dim=-1)  # [P,3]
     fill_c = (d_cc == 0).to(d_cc.dtype)
     fill_p = (d_pp == 0).to(d_pp.dtype)
-    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * eqs.g_c)
+    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * g_c)
     pt_term = torch.sum((lam * d_pp + fill_p) * dp * dp) - torch.sum(dp * eqs.g_p.T)
-    return 0.5 * (cam_term + pt_term)
+    return 0.5 * (cam_term + psum(pt_term, group))
 
 
-def grad_inf_cm(eqs: NormalEqsCM) -> torch.Tensor:
-    return torch.maximum(
-        torch.max(torch.abs(eqs.g_c)), torch.max(torch.abs(eqs.g_p))
+def grad_inf_cm(eqs: NormalEqsCM, group=None) -> torch.Tensor:
+    """Infinity norm of the gradient; under ``group`` of the summed camera
+    gradient and every rank's point gradient."""
+    gi = torch.maximum(
+        torch.max(torch.abs(psum(eqs.g_c, group))), torch.max(torch.abs(eqs.g_p))
     )
+    return pmax(gi, group)

@@ -159,8 +159,9 @@ def test_checkpoints_move_both_ways(tmp_path):
     assert tio.latest_checkpoint(str(tmp_path)) == str(tmp_path / "ckpt_7.npz")
     assert tio.latest_checkpoint(str(tmp_path), prefix="none") is None
     assert jio.latest_checkpoint(str(tmp_path)) == tio.latest_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.save_checkpoint_sharded(a, None)
+    # The sharded loaders read part files only (<path>.p<rank>).
+    with pytest.raises(FileNotFoundError, match="no checkpoint parts"):
+        tio.load_checkpoint_sharded_cm(a)
 
 
 def test_native_and_numpy_fallback_agree(tmp_path, jscene, monkeypatch):
