@@ -102,7 +102,7 @@ Phases (any failure raises and the script exits non-zero):
    equal CG counts; on rank 0's shard K_E, K_C, ``hcpT_x``, ``hcp_w`` and K_H
    held to their plain versions; each rank's launches against its logs.
    gloo's reduce-scatter and all-gather run as all-reduces
-   (``dist/collectives.py``); the phase says so.
+   (``utils/collectives.py``); the phase says so.
 
 No solve path runs K_D (as in the JAX package): every solve checks that it
 launched 0 times.
@@ -1500,7 +1500,7 @@ DIST_RTOL_VENICE = 1e-6
 
 
 def _collectives_note(n_lm, n_cg) -> str:
-    from pysfm_tpu_torch.dist import collectives
+    from pysfm_tpu_torch.utils import collectives
 
     calls, nbytes = collectives.CALLS, collectives.BYTES
     return (f"collectives {dict(calls)} ({sum(calls.values()) / n_lm:.1f} a LM iteration, "
@@ -1531,7 +1531,8 @@ def phase_dist_venice(smi, venice, main_costs) -> dict:
     the headline scene, its projection kernel held to plain on the shard.
     Returns {kernel: launches}."""
     from pysfm_tpu_torch import dist
-    from pysfm_tpu_torch.dist import collectives, multihost
+    from pysfm_tpu_torch.dist import multihost
+    from pysfm_tpu_torch.utils import collectives
     from pysfm_tpu_torch.dist.sharded_lm import _local_problem
     from pysfm_tpu_torch.pipeline import synthetic
     from pysfm_tpu_torch.solver import LMConfig
@@ -1604,11 +1605,12 @@ def _dist_rank(mesh, dtype_name):
     five kernels of the path held to their plain versions on the shard's
     own layout; in f64 the plain route.  Returns the logs and counts."""
     from pysfm_tpu_torch import dist
-    from pysfm_tpu_torch.dist import collectives, multihost
+    from pysfm_tpu_torch.dist import multihost
+    from pysfm_tpu_torch.utils import collectives
     from pysfm_tpu_torch.dist.sharded_cm import _local_cm
     from pysfm_tpu_torch.pipeline import synthetic
     from pysfm_tpu_torch.solver import LMConfig
-    from pysfm_tpu_torch.solver.kernels import spmv
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
 
     dtype = getattr(np, dtype_name)
     cmp = synthetic.make_bal_scene(**{**DIST_SCENE, "dtype": dtype}, device=mesh.device).problem
@@ -1630,6 +1632,7 @@ def _dist_rank(mesh, dtype_name):
             raise AssertionError(f"dist ranks f64: the plain route launched {spmv.LAUNCHES}")
         else:
             counts = dict(spmv.LAUNCHES)
+        counts["proj_cm"] = proj.LAUNCHES
         n, n_cg = int(st.n_iters), int(st.cg_iters.sum())
         out["runs"][cam_axis] = dict(costs=st.costs.cpu().numpy(),
                                      cg=st.cg_iters.cpu().numpy(), counts=counts, secs=secs,
@@ -1660,7 +1663,7 @@ def phase_dist_ranks(smi) -> dict:
     from pysfm_tpu_torch.solver.lm import make_grouped_ops
 
     cfg = LMConfig(**DIST_CFG)
-    counts = dict.fromkeys(SPMV_KERNELS, 0)
+    counts = dict.fromkeys(("proj_cm",) + tuple(SPMV_KERNELS), 0)
     for dtype_name, rtol in (("float32", DIST_RTOL_F32), ("float64", DIST_RTOL_F64)):
         cmp = synthetic.make_bal_scene(**{**DIST_SCENE, "dtype": getattr(np, dtype_name)},
                                        device="cuda").problem
@@ -2008,7 +2011,7 @@ def main() -> int:
     # the counts set to 0 just before it.
     proj_paths = {"main": launches, "std": std["launches"], "incremental": incr_launches,
                   "incremental scale": scale_launches, "dist venice": dist_venice["proj_cm"],
-                  "dist ranks": 0}
+                  "dist ranks": dist_ranks["proj_cm"]}
     kernels = [{
         "name": "proj_cm",
         "route": "cuda",

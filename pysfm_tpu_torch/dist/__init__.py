@@ -4,40 +4,32 @@ multi-host glue.
 
 Port of :mod:`pysfm_tpu.dist`, with the same public names.  One process per
 rank holds one point shard; camera-sized partials are summed over the
-process group (:mod:`~pysfm_tpu_torch.dist.collectives`).
-
-The solver modules import :mod:`~pysfm_tpu_torch.dist.collectives`, and
-this package's solvers import the solver modules, so the names below load
-on first use (PEP 562) rather than when the package is imported.
+process group (:mod:`pysfm_tpu_torch.utils.collectives`, which the solver
+modules import as well).
 """
 
-import importlib
-
+from pysfm_tpu_torch.dist import launch, multihost  # noqa: F401
 from pysfm_tpu_torch.dist.mesh import AXIS, Mesh, make_mesh  # noqa: F401
+from pysfm_tpu_torch.dist.shard import (  # noqa: F401
+    ShardedProblem,
+    device_put_sharded,
+    shard_problem,
+    unshard_points,
+    unshard_problem,
+)
+from pysfm_tpu_torch.dist.sharded_cm import (  # noqa: F401
+    ShardedCMProblem,
+    device_put_sharded_cm,
+    shard_cm_problem,
+    solve_sharded_cm,
+    unshard_cm,
+)
+from pysfm_tpu_torch.dist.sharded_lm import solve_sharded  # noqa: F401
 
-_LAZY = {
-    "ShardedProblem": "shard",
-    "device_put_sharded": "shard",
-    "shard_problem": "shard",
-    "unshard_points": "shard",
-    "unshard_problem": "shard",
-    "solve_sharded": "sharded_lm",
-    "ShardedCMProblem": "sharded_cm",
-    "device_put_sharded_cm": "sharded_cm",
-    "shard_cm_problem": "sharded_cm",
-    "solve_sharded_cm": "sharded_cm",
-    "unshard_cm": "sharded_cm",
-}
-
-__all__ = ["AXIS", "Mesh", "make_mesh", *_LAZY]
-
-
-_MODULES = ("collectives", "launch", "multihost", "shard", "sharded_cm", "sharded_lm")
-
-
-def __getattr__(name):
-    if name in _LAZY:
-        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
-    if name in _MODULES:
-        return importlib.import_module(f"{__name__}.{name}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = [
+    "AXIS", "Mesh", "make_mesh",
+    "ShardedProblem", "device_put_sharded", "shard_problem", "unshard_points",
+    "unshard_problem", "solve_sharded",
+    "ShardedCMProblem", "device_put_sharded_cm", "shard_cm_problem", "solve_sharded_cm",
+    "unshard_cm",
+]

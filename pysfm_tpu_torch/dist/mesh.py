@@ -4,8 +4,8 @@ Port of :mod:`pysfm_tpu.dist.mesh`.  The JAX package runs one controller
 over a :class:`jax.sharding.Mesh` of devices and names the shard axis
 :data:`AXIS`; collectives are ``psum``/``pmax`` over that axis.  PyTorch's
 idiom is one process per rank joined in a ``torch.distributed`` process
-group, and :class:`Mesh` is its counterpart: the group, this process's rank
-and the world size, and the device the rank's shard lives on.  Solver
+group, and :class:`Mesh` is its counterpart: this process's rank, the world
+size, the backend, and the device the rank's shard lives on.  Solver
 functions take it as ``group=`` where the JAX functions take
 ``axis_name=``; ``group=None`` is the single-device code path.
 
@@ -31,13 +31,13 @@ AXIS = "shard"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh of ranks: the process group and this process's place."""
+    """A 1-D mesh of ranks over the world (default) process group: this
+    process's place in it.
 
-    # The torch.distributed group the collectives take; None is the default
-    # (world) group.  No reference to the world's ProcessGroup object is
-    # kept: one that outlives destroy_process_group() is torn down at
-    # interpreter exit, after the threads it owns, and aborts the process.
-    group: object
+    No reference to the world's ProcessGroup object is kept: one that
+    outlives ``destroy_process_group()`` is torn down at interpreter exit,
+    after the threads it owns, and aborts the process."""
+
     rank: int
     size: int
     device: torch.device   # where this rank's shard and its collectives live
@@ -73,5 +73,4 @@ def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
         raise ValueError(f"the nccl backend needs a CUDA device, got {device}")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"unsupported backend {backend!r}")
-    return Mesh(group=None, rank=tdist.get_rank(), size=size, device=device,
-                backend=backend)
+    return Mesh(rank=tdist.get_rank(), size=size, device=device, backend=backend)

@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pysfm_tpu_torch.dist.collectives import all_gather
+from pysfm_tpu_torch.utils.collectives import all_gather
 from pysfm_tpu_torch.problem.problem import BundleProblem, build_point_obs_table
 
 # Replicated camera state and sharded fields of ShardedProblem.

@@ -8,9 +8,10 @@ Port of :mod:`pysfm_tpu.dist.sharded_cm`, with the partition of
   owns a contiguous block of points and all their observations (point-
   sorted, so a contiguous slice), and builds its own
   :class:`~pysfm_tpu_torch.solver.kernels.spmv.GroupedOps` over them;
-- **cameras are replicated**; the camera-sized partials (Hcc, g_c, each CG
-  product, the block-Jacobi diagonal) are summed over the ranks inside
-  ``solver/pcg.py`` and ``solver/lm.py`` (``group=``);
+- **cameras are replicated**; the camera-sized partials are summed over
+  the ranks: Hcc and g_c once per linearization in ``solver/lm.py``, the
+  reduced rhs, the block-Jacobi diagonal and each CG product in
+  ``solver/pcg.py`` (``group=``);
 - the LM loop is :func:`pysfm_tpu_torch.solver.lm.cm_lm_loop`, the same
   function the single-device route runs, with ``group`` set.
 
@@ -18,9 +19,11 @@ The JAX module pads every shard's grouped stream to one static block count
 for ``shard_map``'s one shape and the TPU's two-phase schedule; here each
 rank builds its own operands at its own size, and nothing is padded.
 
-Traffic of one LM iteration: the sums of ``[C, CP, CP]`` + ``[C, CP]``
-(Hcc, g_c; the preconditioner's diagonal), one ``[CP, C]`` sum per CG
-iteration, and the scalar cost / predicted-reduction / step-norm sums.
+Traffic of one LM iteration: one sum of ``[C, CP, CP]`` + ``[C, CP]``
+(Hcc, g_c) per linearization, one of the reduced rhs and the
+preconditioner's diagonal, one ``[CP, C]`` sum per CG iteration, and the
+scalar cost / predicted-reduction / step-norm sums and the gradient-norm
+maximum.
 Point-sized state never moves.
 """
 

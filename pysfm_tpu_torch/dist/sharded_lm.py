@@ -3,35 +3,35 @@ group.
 
 Port of :mod:`pysfm_tpu.dist.sharded_lm`.  Points are eliminated on their
 rank and the reduced camera system is summed over the ranks.  Every rank
-runs the same host loop; the traffic of one iteration is
+runs the same host loop, the single-device loop of ``solver/lm.py`` with
+``group`` set; the traffic of one iteration is
 
-- the sums of the camera-sized partials (Hcc, g_c, the partial S and its
-  rhs on the dense routes; the CG products' partials on the pcg route),
+- the sum of the camera partials Hcc and g_c, once per linearization;
+- the sums of what the points add to the reduced system (the partial S and
+  its rhs on the dense routes; the reduced rhs, the preconditioner's
+  diagonal and each CG product's partial on the pcg route);
 - the sums of the scalar cost, predicted reduction and step norm, and the
   maximum of the gradient norm.
 
 Every control quantity (lam, nu, accept, stop) is computed from reduced
 values, so it is the same on every rank and the ranks never diverge: the
-loop's one host read per iteration (the stop flag) reads such a value.
+loop's host reads read such values.
 
 Three branches, as in the JAX module: ``solver="pcg"`` (the
-standard-layout pcg step of ``solver/pcg.py``), the dense component-major
-route (``layout`` "auto" / "cm"; an f32 problem on a CUDA device takes the
-projection kernel on every shard, the JAX module's ``use_pallas`` rule),
-and the dense standard layout.
+component-major pcg loop, the single-device pcg route), the dense
+component-major route (``layout`` "auto" / "cm"; an f32 problem on a CUDA
+device takes the projection kernel on every shard, the JAX module's
+``use_pallas`` rule), and the dense standard layout.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
-import torch
-
-from pysfm_tpu_torch.dist.collectives import pmax, psum
 from pysfm_tpu_torch.dist.shard import ShardedProblem
+from pysfm_tpu_torch.problem import cm
 from pysfm_tpu_torch.problem import problem as problem_mod
-from pysfm_tpu_torch.solver import pcg, scale, schur, schur_cm
-from pysfm_tpu_torch.solver.lm import LMStats, _linearize, _use_kernel
+from pysfm_tpu_torch.solver.lm import LMStats, _solve_std, cm_lm_loop
 from pysfm_tpu_torch.utils.config import LMConfig
 
 
@@ -48,20 +48,6 @@ def _local_problem(sp: ShardedProblem) -> problem_mod.BundleProblem:
     )
 
 
-def _cost(lp: problem_mod.BundleProblem, obs_chunk: int = 0) -> torch.Tensor:
-    """This rank's robust cost; the caller sums it.  ``obs_chunk`` > 0 builds
-    it a chunk at a time, as the single-device pcg route does."""
-    if obs_chunk > 0:
-        return scale.cost_scale(lp, obs_chunk)
-    return problem_mod.cost(lp)
-
-
-def _grad_inf(eqs, g_p, mesh) -> torch.Tensor:
-    return torch.maximum(
-        torch.max(torch.abs(psum(eqs.g_c, mesh))), pmax(torch.max(torch.abs(g_p)), mesh)
-    )
-
-
 def solve_sharded(
     sp: ShardedProblem, mesh, config: LMConfig = LMConfig()
 ) -> Tuple[ShardedProblem, LMStats]:
@@ -70,102 +56,9 @@ def solve_sharded(
     Returns this rank's solved shard and the stats, which are the same on
     every rank."""
     p = _local_problem(sp)
-    dtype, dev = p.dtype, p.device
-    tiny = torch.finfo(dtype).tiny
-    n_it = config.max_iters
-    pcg_route = config.solver == "pcg"
-    use_cm = config.solver == "dense" and config.layout in ("cm", "auto")
-    use_kernel = use_cm and _use_kernel(config, p)
-    chunk = config.obs_chunk if pcg_route else 0
-
-    def step(p, lam):
-        """(eqs, grad_inf, dc [C, CP], dp [P, 3], pred_fn)."""
-        if pcg_route:
-            eqs = scale.build_normal_equations_scale(p, config.obs_chunk)
-            dc, dp = pcg.solve_step_pcg(
-                eqs, lam, p.obs_cam, p.obs_pt, tol=config.cg_tol,
-                max_iters=config.cg_iters, group=mesh,
-                pt_obsT=p.pt_obs.T, pt_obs_maskT=p.pt_obs_mask.T,
-                cam_obs=p.cam_obs, cam_obs_mask=p.cam_obs_mask,
-            )
-            return eqs, _grad_inf(eqs, eqs.g_p, mesh), dc, dp, scale.predicted_reduction_scale
-        if use_cm:
-            rt, Jct, Jpt, wt = _linearize(p, use_kernel)
-            eqs = schur_cm.build_normal_equations_cm(
-                rt, Jct, Jpt, wt, p.obs_cam, p.pt_obs, p.pt_obs_mask, p.n_cameras,
-            )
-            dc, dp = schur_cm.solve_step_cm(
-                eqs, lam, p.obs_cam, p.obs_pt, p.pt_obs, p.pt_obs_mask, group=mesh,
-            )
-            return (eqs, schur_cm.grad_inf_cm(eqs, group=mesh), dc, dp,
-                    schur_cm.predicted_reduction_cm)
-        r, J_cam, J_pt, w = problem_mod.residuals_and_jacobians(p)
-        eqs = schur.build_normal_equations(
-            r, J_cam, J_pt, w, p.obs_cam, p.obs_pt, p.n_cameras, p.n_points,
-            pt_obs=p.pt_obs, pt_obs_mask=p.pt_obs_mask,
-        )
-        dc, dp = schur.solve_step_dense(
-            eqs, lam, p.obs_cam, p.obs_pt, pt_obs=p.pt_obs, pt_obs_mask=p.pt_obs_mask,
-            group=mesh,
-        )
-        return eqs, _grad_inf(eqs, eqs.g_p, mesh), dc, dp, schur.predicted_reduction
-
-    def scalar(v):
-        return torch.as_tensor(v, dtype=dtype, device=dev)
-
-    cost = psum(_cost(p, chunk), mesh)
-    lam, nu = scalar(config.lam0), scalar(2.0)
-    costs = torch.full((n_it + 1,), float("nan"), dtype=dtype, device=dev)
-    costs[0] = cost
-    lams = torch.full((n_it,), float("nan"), dtype=dtype, device=dev)
-    accepted = torch.zeros((n_it,), dtype=torch.bool, device=dev)
-    grad_infs = torch.full((n_it,), float("nan"), dtype=dtype, device=dev)
-    step_norms = torch.full((n_it,), float("nan"), dtype=dtype, device=dev)
-    it = 0
-    while it < n_it:
-        eqs, grad_inf, dc, dp, predicted = step(p, lam)
-        cand = problem_mod.apply_update(p, dc, dp)
-        new_cost = psum(_cost(cand, chunk), mesh)
-        pred = predicted(eqs, lam, dc, dp, group=mesh)
-        actual = cost - new_cost
-        rho = actual / torch.clamp(pred, min=tiny)
-        ok = torch.isfinite(new_cost) & (actual > 0) & (pred > 0)
-
-        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam_next = torch.where(
-            ok, torch.clamp(lam * factor, config.lam_min, config.lam_max),
-            torch.clamp(lam * nu, config.lam_min, config.lam_max),
-        )
-        nu_next = torch.where(ok, 2.0, nu * 2.0)
-        p = p.replace(
-            R=torch.where(ok, cand.R, p.R), t=torch.where(ok, cand.t, p.t),
-            intr=torch.where(ok, cand.intr, p.intr), X=torch.where(ok, cand.X, p.X),
-        )
-        cost_next = torch.where(ok, new_cost, cost)
-
-        step_norm = torch.sqrt(torch.sum(dc * dc) + psum(torch.sum(dp * dp), mesh))
-        converged = (
-            (grad_inf < config.tol_grad)
-            | (ok & (actual < config.tol_cost_rel * cost))
-            | (step_norm < config.tol_step)
-        )
-        costs[it + 1] = cost_next
-        lams[it] = lam
-        accepted[it] = ok
-        grad_infs[it] = grad_inf
-        step_norms[it] = step_norm
-        lam, nu, cost = lam_next, nu_next, cost_next
-        it += 1
-        # The one host read of the iteration, from reduced values only.
-        if bool(converged):
-            break
-
-    it_idx = torch.arange(n_it + 1, device=dev)
-    out = sp.replace(R=p.R, t=p.t, intr=p.intr, X=p.X[None])
-    return out, LMStats(
-        costs=torch.where(it_idx <= it, costs, cost),
-        lams=lams, accepted=accepted, grad_inf=grad_infs, step_norms=step_norms,
-        n_iters=torch.tensor(it, device=dev), lam_next=lam, nu_next=nu,
-        cg_iters=torch.zeros((n_it,), dtype=torch.int32, device=dev),
-        dc_next=torch.zeros((p.n_cameras, p.cam_dof), dtype=dtype, device=dev),
-    )
+    if config.solver == "pcg":
+        cmp, stats = cm_lm_loop(cm.from_problem(p), config, group=mesh)
+        p = cm.merge_params(p, cmp)
+    else:
+        p, stats = _solve_std(p, config, group=mesh)
+    return sp.replace(R=p.R, t=p.t, intr=p.intr, X=p.X[None]), stats

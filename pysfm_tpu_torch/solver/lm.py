@@ -21,12 +21,15 @@ transfer per LM iteration, plus one ``go`` flag per CG iteration
 (``pcg.pcg_solve``).  Removing those reads (CUDA graph capture) is later
 work.
 
-:func:`cm_lm_loop` also runs distributed (``group``, a
-:class:`~pysfm_tpu_torch.dist.mesh.Mesh`; the JAX loop's ``axis_name``):
-``cmp`` and ``gops`` are then one rank's point shard with the camera state
-replicated, every camera-sized or scalar control quantity is summed (or
-maxed) over the ranks, and so every rank reads the same values at its host
-reads and takes the same accept / reject / stop decisions.
+Both loops also run distributed (``group``, a
+:class:`~pysfm_tpu_torch.dist.mesh.Mesh`; the JAX loops' ``axis_name``):
+the problem (and ``gops``) is then one rank's point shard with the camera
+state replicated.  Each linearization's camera partials Hcc and g_c are
+summed over the ranks once (:func:`schur.sum_cameras`), and the cost, the
+gradient norm, the predicted reduction and the step norm are reduced, so
+every rank reads the same values at its host reads and takes the same
+accept / reject / stop decisions.  ``dist.solve_sharded`` and
+``dist.solve_sharded_cm`` call them so.
 """
 
 from __future__ import annotations
@@ -36,13 +39,13 @@ from typing import Tuple
 
 import torch
 
-from pysfm_tpu_torch.dist.collectives import pmax, psum
 from pysfm_tpu_torch.geometry import so3
 from pysfm_tpu_torch.problem import cm
 from pysfm_tpu_torch.problem import problem as problem_mod
 from pysfm_tpu_torch.problem.problem import BundleProblem
 from pysfm_tpu_torch.solver import pcg, scale, schur, schur_cm
 from pysfm_tpu_torch.solver.kernels import proj, spmv
+from pysfm_tpu_torch.utils.collectives import psum
 from pysfm_tpu_torch.utils.config import LMConfig
 
 
@@ -99,10 +102,6 @@ def solve(
             cm.from_problem(prob), config, lam_init, nu_init, gops, dc_init
         )
         return cm.merge_params(prob, cmp), stats
-    if config.solver != "dense":
-        raise ValueError(f"unknown solver {config.solver!r}")
-    if config.layout not in ("auto", "cm", "std"):
-        raise ValueError(f"unknown layout {config.layout!r}")
     return _solve_std(prob, config, lam_init, nu_init)
 
 
@@ -132,19 +131,19 @@ def _linearize(p: BundleProblem, use_kernel: bool):
     return r.T, J_cam.reshape(M, -1).T, J_pt.reshape(M, 6).T, w
 
 
-def _step_cm(p: BundleProblem, lam, use_kernel: bool):
+def _step_cm(p: BundleProblem, lam, use_kernel: bool, group=None):
     """(eqs, grad_inf, dc [C,CP], dp [P,3]) of the component-major route."""
     rt, Jct, Jpt, wt = _linearize(p, use_kernel)
-    eqs = schur_cm.build_normal_equations_cm(
+    eqs = schur.sum_cameras(schur_cm.build_normal_equations_cm(
         rt, Jct, Jpt, wt, p.obs_cam, p.pt_obs, p.pt_obs_mask, p.n_cameras,
-    )
+    ), group)
     dc, dp = schur_cm.solve_step_cm(
-        eqs, lam, p.obs_cam, p.obs_pt, p.pt_obs, p.pt_obs_mask,
+        eqs, lam, p.obs_cam, p.obs_pt, p.pt_obs, p.pt_obs_mask, group=group,
     )
-    return eqs, schur_cm.grad_inf_cm(eqs), dc, dp
+    return eqs, schur_cm.grad_inf_cm(eqs, group), dc, dp
 
 
-def _step_std(p: BundleProblem, lam, use_kernel: bool):
+def _step_std(p: BundleProblem, lam, use_kernel: bool, group=None):
     """(eqs, grad_inf, dc [C,CP], dp [P,3]) of the standard-layout route: the
     std wrapper of the projection kernel (``[M, 2, CP]`` blocks), then
     ``schur`` with the visibility tables."""
@@ -152,15 +151,15 @@ def _step_std(p: BundleProblem, lam, use_kernel: bool):
         r, J_cam, J_pt, w = proj.residuals_and_jacobians(p)
     else:
         r, J_cam, J_pt, w = problem_mod.residuals_and_jacobians(p)
-    eqs = schur.build_normal_equations(
+    eqs = schur.sum_cameras(schur.build_normal_equations(
         r, J_cam, J_pt, w, p.obs_cam, p.obs_pt, p.n_cameras, p.n_points,
         pt_obs=p.pt_obs, pt_obs_mask=p.pt_obs_mask,
-    )
-    grad_inf = torch.maximum(torch.max(torch.abs(eqs.g_c)), torch.max(torch.abs(eqs.g_p)))
+    ), group)
     dc, dp = schur.solve_step_dense(
         eqs, lam, p.obs_cam, p.obs_pt, pt_obs=p.pt_obs, pt_obs_mask=p.pt_obs_mask,
+        group=group,
     )
-    return eqs, grad_inf, dc, dp
+    return eqs, schur_cm.grad_inf_cm(eqs, group), dc, dp
 
 
 def _solve_std(
@@ -168,9 +167,16 @@ def _solve_std(
     config: LMConfig,
     lam_init=None,
     nu_init=None,
+    group=None,
 ) -> Tuple[BundleProblem, LMStats]:
     """The dense LM loop, component-major (``layout`` "auto" / "cm") or in
-    the standard layout ("std")."""
+    the standard layout ("std").  With ``group`` ``prob`` is this rank's
+    point shard (``dist.solve_sharded``) and the loop's sums run over the
+    ranks."""
+    if config.solver != "dense":
+        raise ValueError(f"unknown solver {config.solver!r}")
+    if config.layout not in ("auto", "cm", "std"):
+        raise ValueError(f"unknown layout {config.layout!r}")
     dtype, dev = prob.dtype, prob.device
     n_it = config.max_iters
     use_kernel = _use_kernel(config, prob)
@@ -183,7 +189,7 @@ def _solve_std(
     def scalar(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
 
-    cost = problem_mod.cost(prob)
+    cost = psum(problem_mod.cost(prob), group)
     lam = scalar(config.lam0 if lam_init is None else lam_init)
     nu = scalar(2.0 if nu_init is None else nu_init)
     costs = torch.full((n_it + 1,), float("nan"), dtype=dtype, device=dev)
@@ -196,10 +202,10 @@ def _solve_std(
     p = prob
     it = 0
     while it < n_it:
-        eqs, grad_inf, dc, dp = step(p, lam, use_kernel)
+        eqs, grad_inf, dc, dp = step(p, lam, use_kernel, group)
         cand = problem_mod.apply_update(p, dc, dp)
-        new_cost = problem_mod.cost(cand)
-        pred = predicted(eqs, lam, dc, dp)
+        new_cost = psum(problem_mod.cost(cand), group)
+        pred = predicted(eqs, lam, dc, dp, group=group)
         actual = cost - new_cost
         rho = actual / torch.clamp(pred, min=tiny)
         ok = torch.isfinite(new_cost) & (actual > 0) & (pred > 0)
@@ -223,7 +229,7 @@ def _solve_std(
         )
         cost_next = torch.where(ok, new_cost, cost)
 
-        step_norm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dp * dp))
+        step_norm = torch.sqrt(torch.sum(dc * dc) + psum(torch.sum(dp * dp), group))
         converged = (
             (grad_inf < config.tol_grad)
             | (ok & (actual < config.tol_cost_rel * cost))
@@ -237,7 +243,8 @@ def _solve_std(
         step_norms[it] = step_norm
         p, lam, nu, cost = p_next, lam_next, nu_next, cost_next
         it += 1
-        # The one host read of the iteration: stop once converged.
+        # The one host read of the iteration: stop once converged (under a
+        # group from reduced values, the same on every rank).
         if bool(converged):
             break
 
@@ -325,8 +332,9 @@ def cm_lm_loop(
 
     With ``group`` this is the distributed loop of
     :func:`pysfm_tpu_torch.dist.solve_sharded_cm`: ``cmp`` and ``gops`` are
-    this rank's shard, the cost, the gradient norm, the predicted reduction
-    and the step norm are reduced over the ranks, and the CG step sums its
+    this rank's shard; each linearization's Hcc and g_c are summed over the
+    ranks once, the cost, the gradient norm, the predicted reduction and
+    the step norm are reduced, and the CG step sums its point-derived
     camera partials (``pcg``).  ``cam_shards`` > 0 (with ``group``) also
     partitions the camera axis of the reduced solve
     (:class:`~pysfm_tpu_torch.solver.pcg.CamShard`); the camera parameters
@@ -357,12 +365,15 @@ def cm_lm_loop(
         """(eqs, b_rows, b_cam) linearized at q; the rows are None off the
         kernels."""
         if gops is not None:
-            return spmv.build_eqs(
+            eqs, b_rows, b_cam = spmv.build_eqs(
                 gops, cm.cam_table(q), q.X3, q.robust_scale,
                 cp=q.cam_dof, model=q.camera_model, robust=q.robust,
                 n_cameras=q.n_cameras, n_points=q.n_points,
             )
-        return scale.build_normal_equations_scale_cm(q, config.obs_chunk), None, None
+        else:
+            eqs = scale.build_normal_equations_scale_cm(q, config.obs_chunk)
+            b_rows = b_cam = None
+        return schur.sum_cameras(eqs, group), b_rows, b_cam
 
     reuse_lin = config.reuse_linearization
     cost = cost_fn(cmp)
@@ -396,10 +407,7 @@ def cm_lm_loop(
             lin = build_lin(p)
         eqs, b_rows, b_cam = lin
         gops_it = None if gops is None else gops.replace(b_rows=b_rows, b_cam=b_cam)
-        grad_inf = torch.maximum(
-            torch.max(torch.abs(psum(eqs.g_c, group))),
-            pmax(torch.max(torch.abs(eqs.g_p)), group),
-        )
+        grad_inf = schur_cm.grad_inf_cm(eqs, group)
         if config.cg_forcing == "ew":
             # Eisenstat-Walker choice 2 (gamma = 0.9, alpha = 2) on the
             # gradient-norm ratio, with the safeguard against over-

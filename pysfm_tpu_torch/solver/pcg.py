@@ -24,9 +24,11 @@ to the damped ``Hcc`` block where a block is not positive definite.
 
 Distributed (``group``, a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`, where
 the JAX functions take ``axis_name``): points, observations and the kernel
-operands are this rank's shard; every S-matvec sums the camera-sized
-``[CP, C]`` partial over the ranks (one collective per CG iteration), the
-preconditioner's partial once per LM iteration.  :class:`CamShard`
+operands are this rank's shard, and ``eqs`` arrives with Hcc and g_c summed
+(:func:`schur.sum_cameras`, once per linearization); every S-matvec sums
+the camera-sized ``[CP, C]`` partial over the ranks (one collective per CG
+iteration), the reduced rhs and the preconditioner's partial once per LM
+iteration.  :class:`CamShard`
 partitions the camera axis of the reduced solve as well.
 
 The JAX package runs CG inside one ``lax.while_loop``.  Here it is a host
@@ -43,11 +45,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from pysfm_tpu_torch.dist.collectives import all_gather, psum, psum_scatter
 from pysfm_tpu_torch.solver import scale as scale_mod
 from pysfm_tpu_torch.solver import schur
 from pysfm_tpu_torch.solver.kernels import spmv
 from pysfm_tpu_torch.utils import precision as xp
+from pysfm_tpu_torch.utils.collectives import all_gather, psum, psum_many, psum_scatter
 
 
 class PCGSystem(NamedTuple):
@@ -120,6 +122,16 @@ def _scatter_rows(x: torch.Tensor, cam: CamShard) -> torch.Tensor:
     return psum_scatter(x, cam.group, dim=0)
 
 
+def _own_rows(x: torch.Tensor, cam: CamShard) -> torch.Tensor:
+    """[C, ...] (the same on every rank) -> this rank's [n_local, ...]
+    rows, the pad rows zero."""
+    pad = cam.n_pad - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    k = cam.group.rank * cam.n_local
+    return x[k:k + cam.n_local].contiguous()
+
+
 def _gather_x(x_local: torch.Tensor, cam: CamShard) -> torch.Tensor:
     """[cp, n_local] shard -> the full [cp, C] (unpadded) on every rank."""
     return all_gather(x_local, cam.group, dim=1)[:, :cam.n_cams].contiguous()
@@ -159,18 +171,19 @@ def build_pcg_system(
     ``gops.b_cam`` (``eqs.B_cm is None``, as the K_E build returns them),
     else the visibility tables when given, else segment sums.
 
-    Under ``group`` the camera partials (Hcc, g_c, the reduced rhs, the
-    preconditioner's diagonal) are summed over the ranks.  With ``cam`` the
-    system holds only this rank's ``cam.n_local`` camera rows: the partials
-    are summed and routed to their owners by a reduce-scatter instead."""
+    Under ``group`` ``eqs`` holds the summed Hcc and g_c
+    (:func:`schur.sum_cameras`, once per linearization) and this rank's
+    points; the reduced rhs and the preconditioner's diagonal, which come
+    from the points, are summed over the ranks here.  With ``cam`` the
+    system holds only this rank's ``cam.n_local`` camera rows: it takes its
+    rows of Hcc and g_c, and a reduce-scatter sums the point-derived
+    partials and routes them to their owners."""
     if isinstance(eqs, schur.NormalEqs):
         eqs = _eqs_to_cm(eqs)
     C, cp, _ = eqs.Hcc.shape
     Hcc, g_c = eqs.Hcc, eqs.g_c
     if cam is not None:
-        Hcc, g_c = _scatter_rows(Hcc, cam), _scatter_rows(g_c, cam)
-    else:
-        Hcc, g_c = psum(Hcc, group), psum(g_c, group)
+        Hcc, g_c = _own_rows(Hcc, cam), _own_rows(g_c, cam)
     Hcc_aug = schur.augment_block_diag(Hcc, lam)
     hinv6 = scale_mod.sym6_inv(scale_mod.augment6(eqs.hpp6, lam))
 
@@ -226,7 +239,7 @@ def build_pcg_system(
     if cam is not None:
         rhs_red, D = _scatter_cols(rhs_red, cam), _scatter_rows(D, cam)
     else:
-        rhs_red, D = psum(rhs_red, group), psum(D, group)
+        rhs_red, D = psum_many((rhs_red, D), group)
     rhs = (-g_c.T + rhs_red).contiguous()            # [cp, C] (or [cp, n_local])
     D = Hcc_aug - D
     # Batched Cholesky inverse of the [CP, CP] diagonal blocks; symmetrize
@@ -372,9 +385,7 @@ def pcg_solve(
     else:
         if cam is not None:
             # The warm start arrives full [CP, C]; take this rank's columns.
-            x0 = torch.nn.functional.pad(x0, (0, cam.n_pad - x0.shape[1]))
-            k = cam.group.rank * cam.n_local
-            x0 = x0[:, k:k + cam.n_local].contiguous()
+            x0 = _own_rows(x0.T, cam).T.contiguous()
         x = x0
         r = b - schur_matvec(sys, x, group, cam)
         Q = -0.5 * (gdot(x, b) + gdot(x, r))   # Q(x0), with S x0 = b - r
@@ -446,8 +457,9 @@ def solve_step_pcg_cm3(
 
     ``dc_warm`` ([C, CP]) warm-starts CG with the previous LM iteration's
     camera step; ``gops`` (a :class:`spmv.GroupedOps` with the rows set)
-    routes the products with Hcp through the kernels.  ``group`` sums the
-    camera partials over the ranks; ``cam_shards`` > 0 (with ``group``)
+    routes the products with Hcp through the kernels.  Under ``group``
+    ``eqs`` holds the summed Hcc / g_c (:func:`schur.sum_cameras`) and the
+    rank's points; ``cam_shards`` > 0 (with ``group``)
     partitions the camera axis of the reduced solve (:class:`CamShard`),
     and the returned dc is still the full [C, CP] step."""
     cam = None
@@ -482,12 +494,11 @@ def solve_step_pcg(
     pt_obs_maskT: Optional[torch.Tensor] = None,
     cam_obs: Optional[torch.Tensor] = None,
     cam_obs_mask: Optional[torch.Tensor] = None,
-    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped step in the standard layout: ``(dc [C, CP], dp [P, 3])``."""
     dc, dp3, _ = solve_step_pcg_cm3(
         eqs, lam, obs_cam, obs_pt, tol=tol, max_iters=max_iters,
         pt_obsT=pt_obsT, pt_obs_maskT=pt_obs_maskT,
-        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask, group=group,
+        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask,
     )
     return dc, dp3.T

@@ -26,9 +26,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pysfm_tpu_torch.dist.collectives import psum
 from pysfm_tpu_torch.problem import cm
 from pysfm_tpu_torch.problem import robust as robust_mod
+from pysfm_tpu_torch.utils.collectives import psum
 
 # Lower-triangular 3x3 component order used throughout (matches schur_cm).
 TRI3 = ((0, 0), (1, 0), (1, 1), (2, 0), (2, 1), (2, 2))
@@ -207,11 +207,11 @@ def cost_scale(p, obs_chunk: int = 0) -> torch.Tensor:
 
 
 def predicted_reduction_scale(
-    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor, group=None
+    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor
 ) -> torch.Tensor:
     """:func:`predicted_reduction_scale_cm` for a standard-layout point step
     ``dp [P, 3]``."""
-    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T, group=group)
+    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T)
 
 
 def predicted_reduction_scale_cm(
@@ -220,13 +220,12 @@ def predicted_reduction_scale_cm(
     """The LM model reduction of the step ``(dc [C, CP], dp3 [3, P])``.
 
     Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`) ``eqs``
-    holds this rank's partials: the camera terms use the summed Hcc / g_c,
-    the point terms are summed locally, then over the ranks."""
-    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
-    d_cc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
+    holds the summed Hcc / g_c (:func:`schur.sum_cameras`) and this rank's
+    point terms, which are summed locally, then over the ranks."""
+    d_cc = torch.diagonal(eqs.Hcc, dim1=-2, dim2=-1)
     d_pp3 = torch.stack([eqs.hpp6[0], eqs.hpp6[2], eqs.hpp6[5]])   # [3, P]
     fill_c = (d_cc == 0).to(d_cc.dtype)
     fill_p = (d_pp3 == 0).to(d_pp3.dtype)
-    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * g_c)
+    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * eqs.g_c)
     pt_term = torch.sum((lam * d_pp3 + fill_p) * dp3 * dp3) - torch.sum(dp3 * eqs.g_p)
     return 0.5 * (cam_term + psum(pt_term, group))

@@ -1,5 +1,4 @@
-"""Block normal equations + Schur-complement reduction, standard layout
-(single device).
+"""Block normal equations + Schur-complement reduction, standard layout.
 
 Port of :mod:`pysfm_tpu.solver.schur`: build the block-sparse normal
 equations (per-camera blocks Hcc, per-point 3x3 blocks Hpp, per-observation
@@ -19,8 +18,14 @@ camera system with a dense Cholesky and back-substitute the point steps.
   their steps are exactly zero.
 
 Sign conventions: ``g = J^T W r`` and the Newton system is
-``[Hcc Hcp; Hcp^T Hpp] [dc; dp] = -[gc; gp]``.  The JAX module's
-``axis_name`` (mesh psum) branches come with the distributed port.
+``[Hcc Hcp; Hcp^T Hpp] [dc; dp] = -[gc; gp]``.
+
+Distributed (``group``, a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`, where
+the JAX functions take ``axis_name``): points and their observations are
+this rank's shard and the cameras are replicated.  The LM loop sums the
+camera partials Hcc and g_c once per linearization (:func:`sum_cameras`);
+the functions below take those sums and add over the ranks only what they
+derive from the rank's points.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from pysfm_tpu_torch.dist.collectives import psum
 from pysfm_tpu_torch.utils import precision as xp
+from pysfm_tpu_torch.utils.collectives import psum, psum_many
 
 
 class NormalEqs(NamedTuple):
@@ -99,6 +104,16 @@ def build_normal_equations(
         g_c = _segment_sum(gc_m, obs_cam, n_cameras)
         g_p = _segment_sum(gp_m, obs_pt, n_points)
     return NormalEqs(Hcc=Hcc, Hpp=Hpp, g_c=g_c, g_p=g_p, B=b_m)
+
+
+def sum_cameras(eqs, group=None):
+    """``eqs`` (any of the solver's normal-equation tuples) with its camera
+    partials Hcc and g_c summed over the ranks of ``group``, in one
+    collective; ``eqs`` itself with ``group=None``."""
+    if group is None:
+        return eqs
+    Hcc, g_c = psum_many((eqs.Hcc, eqs.g_c), group)
+    return eqs._replace(Hcc=Hcc, g_c=g_c)
 
 
 def augment_block_diag(H: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
@@ -215,15 +230,12 @@ def reduce_dense(
     ``E_m = B_m M_p^T`` before the scatter, then
     ``S = blockdiag(Hcc_aug) - sum_p V_p V_p^T``.
 
-    Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`) points and
-    their observations are this rank's shard and the cameras are
-    replicated: Hcc, g_c, the partial S and its rhs are summed over the
-    ranks; point-sized state stays where it is."""
+    Under ``group`` ``eqs`` holds the summed Hcc and g_c
+    (:func:`sum_cameras`) and this rank's points: the partial S and its rhs
+    are summed over the ranks; point-sized state stays where it is."""
     C, CP, _ = eqs.Hcc.shape
     P = eqs.Hpp.shape[0]
-    Hcc = psum(eqs.Hcc, group)
-    g_c = psum(eqs.g_c, group)
-    Hcc_aug = augment_block_diag(Hcc, lam)
+    Hcc_aug = augment_block_diag(eqs.Hcc, lam)
     Hpp_aug = augment_block_diag(eqs.Hpp, lam)
 
     M3 = inv_lower3x3(chol3x3(Hpp_aug))                          # [P, 3, 3]
@@ -240,14 +252,15 @@ def reduce_dense(
     )                                                            # [M, CP, 3]
     V = scatter_coupling_dense(E, obs_cam, obs_pt, C, P, pt_obs, pt_obs_mask)
     u = xp.matvec(M3, eqs.g_p)                                   # [P, 3]
-    S = psum(-xp.einsum("pas,pbs->ab", V, V), group)
-    rhs_red = psum(xp.einsum("pas,ps->a", V, u), group)
+    S, rhs_red = psum_many(
+        (-xp.einsum("pas,pbs->ab", V, V), xp.einsum("pas,ps->a", V, u)), group
+    )
     # Add the block-diagonal Hcc without a scatter: view S as [C, CP, C, CP].
     eye_c = torch.eye(C, dtype=S.dtype, device=S.device)
     S = (
         S.reshape(C, CP, C, CP) + Hcc_aug[:, :, None, :] * eye_c[:, None, :, None]
     ).reshape(C * CP, C * CP)
-    rhs = -g_c.reshape(-1) + rhs_red
+    rhs = -eqs.g_c.reshape(-1) + rhs_red
     return SchurSystem(S=S, rhs=rhs, M=M3, V=V, u=u)
 
 
@@ -308,13 +321,12 @@ def predicted_reduction(
 ) -> torch.Tensor:
     """LM model reduction L(0) - L(d) = 0.5 * d^T (lam*D d - g) for the step
     solving (H + lam D) d = -g with Marquardt scaling D = diag(H) (+ fill).
-    Under ``group`` the camera terms use the summed Hcc / g_c and the point
-    terms are summed locally, then over the ranks."""
-    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
-    d_cc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
+    Under ``group`` (``eqs`` with the summed Hcc / g_c) the point terms are
+    summed locally, then over the ranks."""
+    d_cc = torch.diagonal(eqs.Hcc, dim1=-2, dim2=-1)
     d_pp = torch.diagonal(eqs.Hpp, dim1=-2, dim2=-1)
     fill_c = (d_cc == 0).to(d_cc.dtype)
     fill_p = (d_pp == 0).to(d_pp.dtype)
-    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * g_c)
+    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * eqs.g_c)
     pt_term = torch.sum((lam * d_pp + fill_p) * dp * dp) - torch.sum(dp * eqs.g_p)
     return 0.5 * (cam_term + psum(pt_term, group))

@@ -1,4 +1,4 @@
-"""Component-major normal equations + Schur reduction (single device).
+"""Component-major normal equations + Schur reduction.
 
 Port of :mod:`pysfm_tpu.solver.schur_cm`.  Every per-observation quantity
 is a component-major row, a ``[D, M]`` tensor with observations on the
@@ -23,8 +23,10 @@ Layout conventions:
   output order of the batched assembly; the reduced system is permuted back
   to the standard (c, d) order just before the dense solve.
 
-The JAX package's ``axis_name`` (mesh psum) branches are not here; the
-distributed port brings them.
+Distributed (``group``, the JAX functions' ``axis_name``): as in
+:mod:`~pysfm_tpu_torch.solver.schur`, ``eqs`` arrives with the summed
+camera partials (:func:`schur.sum_cameras`) and the functions sum over the
+ranks only what they derive from the rank's points.
 """
 
 from __future__ import annotations
@@ -33,9 +35,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from pysfm_tpu_torch.dist.collectives import pmax, psum
 from pysfm_tpu_torch.solver import schur
 from pysfm_tpu_torch.utils import precision as xp
+from pysfm_tpu_torch.utils.collectives import pmax, psum, psum_many
 
 
 class NormalEqsCM(NamedTuple):
@@ -159,13 +161,12 @@ def reduce_cm(
 ) -> SchurSystemCM:
     """Whitened Schur reduction in component-major layout.
 
-    Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`) the
-    camera-sized Hcc / g_c / S / rhs partials are summed over the ranks;
-    point rows stay on their rank."""
+    Under ``group`` (a :class:`~pysfm_tpu_torch.dist.mesh.Mesh`; ``eqs``
+    with the summed Hcc / g_c) the partial S and its rhs are summed over the
+    ranks; point rows stay on their rank."""
     C, cp, _ = eqs.Hcc.shape
     P = eqs.hpp6.shape[1]
-    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
-    Hcc_aug = schur.augment_block_diag(Hcc, lam)
+    Hcc_aug = schur.augment_block_diag(eqs.Hcc, lam)
 
     m6 = _inv_lower6(_chol6(_augment6(eqs.hpp6, lam)))            # [6, P]
     # Whiten the grid-resident coupling blocks: E_s = sum_{s'} B_{s'} M[s,s'],
@@ -204,8 +205,9 @@ def reduce_cm(
     ])                                                            # [3, P]
     ur = u.T.reshape(3 * P)                                       # rows (p*3+s)
 
-    S_perm = psum(-xp.matmul(Vr.T, Vr), group)                    # [(d,c),(d',c')]
-    rhs_perm = psum(xp.matvec(Vr.T, ur), group)
+    S_perm, rhs_perm = psum_many(
+        (-xp.matmul(Vr.T, Vr), xp.matvec(Vr.T, ur)), group
+    )                                                             # [(d,c),(d',c')]
     # Permute (d, c) -> (c, d) standard order.
     S = (
         S_perm.reshape(cp, C, cp, C)
@@ -218,7 +220,7 @@ def reduce_cm(
         S.reshape(C, cp, C, cp)
         + Hcc_aug[:, :, None, :] * eye_c[:, None, :, None]
     ).reshape(C * cp, C * cp)
-    rhs = -g_c.reshape(-1) + rhs_red
+    rhs = -eqs.g_c.reshape(-1) + rhs_red
     return SchurSystemCM(S=S, rhs=rhs, m6=m6, Vr=Vr, u=u)
 
 
@@ -263,22 +265,21 @@ def predicted_reduction_cm(
     dp: torch.Tensor,
     group=None,
 ) -> torch.Tensor:
-    """The LM model reduction of the step (dc, dp); under ``group`` from the
-    summed camera partials and the summed point terms."""
-    Hcc, g_c = psum(eqs.Hcc, group), psum(eqs.g_c, group)
-    d_cc = torch.diagonal(Hcc, dim1=-2, dim2=-1)
+    """The LM model reduction of the step (dc, dp); under ``group`` (``eqs``
+    with the summed Hcc / g_c) the point terms are summed over the ranks."""
+    d_cc = torch.diagonal(eqs.Hcc, dim1=-2, dim2=-1)
     d_pp = torch.stack([eqs.hpp6[0], eqs.hpp6[2], eqs.hpp6[5]], dim=-1)  # [P,3]
     fill_c = (d_cc == 0).to(d_cc.dtype)
     fill_p = (d_pp == 0).to(d_pp.dtype)
-    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * g_c)
+    cam_term = torch.sum((lam * d_cc + fill_c) * dc * dc) - torch.sum(dc * eqs.g_c)
     pt_term = torch.sum((lam * d_pp + fill_p) * dp * dp) - torch.sum(dp * eqs.g_p.T)
     return 0.5 * (cam_term + psum(pt_term, group))
 
 
-def grad_inf_cm(eqs: NormalEqsCM, group=None) -> torch.Tensor:
-    """Infinity norm of the gradient; under ``group`` of the summed camera
-    gradient and every rank's point gradient."""
-    gi = torch.maximum(
-        torch.max(torch.abs(psum(eqs.g_c, group))), torch.max(torch.abs(eqs.g_p))
+def grad_inf_cm(eqs, group=None) -> torch.Tensor:
+    """Infinity norm of the gradient of any of the solver's normal-equation
+    tuples (the layout of g_c and g_p does not matter); under ``group``
+    (``eqs`` with the summed g_c) the maximum over every rank's points."""
+    return pmax(
+        torch.maximum(torch.max(torch.abs(eqs.g_c)), torch.max(torch.abs(eqs.g_p))), group
     )
-    return pmax(gi, group)

@@ -1,1 +1,2 @@
-"""Precision policy, configuration and timing fences."""
+"""Precision policy, configuration, timing fences, tracing, and the
+collectives of the distributed path."""

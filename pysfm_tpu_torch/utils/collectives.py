@@ -14,17 +14,23 @@ JAX                    here
 ``axis_index``         ``mesh.rank``
 =====================  ==================================================
 
-Each function returns a new tensor and leaves its operand as it was (JAX's
-collectives are pure; the solver all-reduces one partial at several call
-sites).  With ``mesh=None`` each returns its operand itself: the
-single-device path launches nothing more.
+``mesh`` is a :class:`pysfm_tpu_torch.dist.mesh.Mesh` (the collectives run
+over the default, world, group) or None.  Each function returns a new
+tensor and leaves its operand as it was (JAX's collectives are pure).  With
+``mesh=None`` each returns its operand itself: the single-device path
+launches nothing more.  :func:`psum_many` sums several tensors in one
+``all_reduce``.
+
+This module sits below ``solver/`` and ``dist/``, which both import it.
 
 The gloo backend has ``all_reduce`` for CPU and CUDA tensors but not, in
 every PyTorch release, ``reduce_scatter`` and ``all_gather_into_tensor``
-for CUDA tensors.  So for gloo the two are built from ``all_reduce``
-(:func:`_scatter_by_all_reduce`, :func:`_gather_by_all_reduce`): the gather
-as the sum of zero-filled blocks, exact, and the scatter as a full sum of
-which each rank keeps its own rows.  NCCL never takes that code.
+for CUDA tensors.  So for gloo with CUDA tensors the two are built from
+``all_reduce`` (:func:`_scatter_by_all_reduce`,
+:func:`_gather_by_all_reduce`): the gather as the sum of zero-filled
+blocks, exact, and the scatter as a full sum of which each rank keeps its
+own rows.  CPU tensors over gloo and every tensor over NCCL take the native
+collectives.
 
 :data:`CALLS` and :data:`BYTES` count, per collective, the calls and the
 bytes of the operands handed to it (the payload, not the backend's wire
@@ -32,6 +38,8 @@ protocol) in this process.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -57,8 +65,17 @@ def psum(x: torch.Tensor, mesh) -> torch.Tensor:
         return x
     _count("psum", x)
     y = x.clone(memory_format=torch.contiguous_format)
-    tdist.all_reduce(y, op=tdist.ReduceOp.SUM, group=mesh.group)
+    tdist.all_reduce(y, op=tdist.ReduceOp.SUM)
     return y
+
+
+def psum_many(xs: Sequence[torch.Tensor], mesh) -> Tuple[torch.Tensor, ...]:
+    """:func:`psum` of each of ``xs`` (one dtype and device) in one
+    ``all_reduce`` of their concatenation."""
+    if mesh is None:
+        return tuple(xs)
+    flat = psum(torch.cat([x.reshape(-1) for x in xs]), mesh)
+    return tuple(f.view_as(x) for f, x in zip(flat.split([x.numel() for x in xs]), xs))
 
 
 def pmax(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -67,27 +84,32 @@ def pmax(x: torch.Tensor, mesh) -> torch.Tensor:
         return x
     _count("pmax", x)
     y = x.clone(memory_format=torch.contiguous_format)
-    tdist.all_reduce(y, op=tdist.ReduceOp.MAX, group=mesh.group)
+    tdist.all_reduce(y, op=tdist.ReduceOp.MAX)
     return y
 
 
+def _staged(x: torch.Tensor, mesh) -> bool:
+    """gloo with a CUDA tensor: the two collectives gloo may lack."""
+    return mesh.backend == "gloo" and x.is_cuda
+
+
 def _scatter_by_all_reduce(x0: torch.Tensor, mesh) -> torch.Tensor:
-    """gloo: the sum over the ranks of ``x0 [n * k, ...]``, of which this
-    rank keeps rows ``[rank * k, (rank + 1) * k)``."""
+    """gloo, CUDA tensors: the sum over the ranks of ``x0 [n * k, ...]``,
+    of which this rank keeps rows ``[rank * k, (rank + 1) * k)``."""
     y = x0.clone()
-    tdist.all_reduce(y, op=tdist.ReduceOp.SUM, group=mesh.group)
+    tdist.all_reduce(y, op=tdist.ReduceOp.SUM)
     k = x0.shape[0] // mesh.size
     return y[mesh.rank * k:(mesh.rank + 1) * k].contiguous()
 
 
 def _gather_by_all_reduce(x0: torch.Tensor, mesh) -> torch.Tensor:
-    """gloo: ``x0 [k, ...]`` of every rank, stacked in rank order, as the
-    sum of zero-filled ``[n * k, ...]`` tensors (exact: each entry is one
-    rank's value plus zeros)."""
+    """gloo, CUDA tensors: ``x0 [k, ...]`` of every rank, stacked in rank
+    order, as the sum of zero-filled ``[n * k, ...]`` tensors (exact: each
+    entry is one rank's value plus zeros)."""
     k = x0.shape[0]
     y = x0.new_zeros((mesh.size * k,) + tuple(x0.shape[1:]))
     y[mesh.rank * k:(mesh.rank + 1) * k] = x0
-    tdist.all_reduce(y, op=tdist.ReduceOp.SUM, group=mesh.group)
+    tdist.all_reduce(y, op=tdist.ReduceOp.SUM)
     return y
 
 
@@ -101,11 +123,11 @@ def psum_scatter(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {mesh.size} ranks")
     _count("psum_scatter", x)
     x0 = x.movedim(dim, 0).contiguous()
-    if mesh.backend == "gloo":
+    if _staged(x0, mesh):
         out = _scatter_by_all_reduce(x0, mesh)
     else:
         out = x0.new_empty((x0.shape[0] // mesh.size,) + tuple(x0.shape[1:]))
-        tdist.reduce_scatter_tensor(out, x0, op=tdist.ReduceOp.SUM, group=mesh.group)
+        tdist.reduce_scatter_tensor(out, x0, op=tdist.ReduceOp.SUM)
     return out.movedim(0, dim).contiguous()
 
 
@@ -116,9 +138,9 @@ def all_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
         return x
     _count("all_gather", x)
     x0 = x.movedim(dim, 0).contiguous()
-    if mesh.backend == "gloo":
+    if _staged(x0, mesh):
         out = _gather_by_all_reduce(x0, mesh)
     else:
         out = x0.new_empty((mesh.size * x0.shape[0],) + tuple(x0.shape[1:]))
-        tdist.all_gather_into_tensor(out, x0, group=mesh.group)
+        tdist.all_gather_into_tensor(out, x0)
     return out.movedim(0, dim).contiguous()

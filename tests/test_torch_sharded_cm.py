@@ -75,7 +75,7 @@ from pysfm_tpu_torch import dist
 from pysfm_tpu_torch.dist import multihost
 from pysfm_tpu_torch.io import load_checkpoint_sharded_cm, save_checkpoint_sharded_cm
 from pysfm_tpu_torch.pipeline import synthetic
-from pysfm_tpu_torch.solver import LMConfig, pcg, scale
+from pysfm_tpu_torch.solver import LMConfig, pcg, scale, schur
 
 torch.set_num_threads(1)
 multihost.initialize(device="cpu", timeout={timeout})
@@ -106,7 +106,7 @@ cmp = scene("bal11", "float64")
 local, _ = dist.device_put_sharded_cm(dist.shard_cm_problem(cmp, mesh.size), mesh,
                                       with_grouped=False)
 lp = dist.sharded_cm._local_cm(local)
-eqs = scale.build_normal_equations_scale_cm(lp)
+eqs = schur.sum_cameras(scale.build_normal_equations_scale_cm(lp), mesh)
 cam = pcg.make_cam_shard(mesh, cmp.n_cameras, mesh.size)
 sys_ = pcg.build_pcg_system(eqs, torch.tensor(1e-3, dtype=torch.float64), lp.obs_cam,
                             lp.obs_pt, lp.pt_obsT, lp.pt_obs_maskT, lp.cam_obs,
