@@ -102,7 +102,18 @@ Phases (any failure raises and the script exits non-zero):
    equal CG counts; on rank 0's shard K_E, K_C, ``hcpT_x``, ``hcp_w`` and K_H
    held to their plain versions; each rank's launches against its logs.
    gloo's reduce-scatter and all-gather run as all-reduces
-   (``utils/collectives.py``); the phase says so.
+   (``utils/collectives.py``); the phase says so;
+16. [examples] (run last) the four runnable examples of
+   ``pysfm_tpu_torch/examples`` on the card through their ``run()``, each
+   under its own gate: ``two_view_ba`` (RMSE below twice the noise; one
+   projection-kernel launch an LM iteration), ``incremental_sfm`` (every
+   frame registered, ATE < 2e-2; one launch an LM iteration of each BA
+   solve), ``bal_checkpoint_resume`` with the pcg kernels (the resumed cost
+   within 1e-4 of the uninterrupted one; launches equal to the three
+   solves' LM/CG logs) and on the JAX script's literal route (no kernel),
+   and ``distributed_ba`` as a world of one rank over NCCL (within 1e-4 of
+   the single-device trajectory); the kernels held to their plain versions
+   on each example's own problems, and each example's wall seconds.
 
 No solve path runs K_D (as in the JAX package): every solve checks that it
 launched 0 times.
@@ -119,6 +130,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1744,27 +1756,42 @@ def _ate(rec, R_gt, t_gt) -> float:
     return float(metrics.ate_rmse(C, metrics.camera_centers(R_gt, t_gt)))
 
 
+@contextlib.contextmanager
+def _recording_ba(problems, iters=None):
+    """While open, every problem an incremental run hands to its BA solve
+    (window and full) goes into ``problems`` as the solve received it, and
+    each solve's LM iterations into ``iters``."""
+    from pysfm_tpu_torch.pipeline import incremental
+
+    solve = incremental.solve
+
+    def recording_solve(prob, config):
+        problems.append(prob)
+        out = solve(prob, config)
+        if iters is not None:
+            iters.append(int(out[1].n_iters))
+        return out
+
+    incremental.solve = recording_solve
+    try:
+        yield
+    finally:
+        incremental.solve = solve
+
+
 def _incremental_run(label, table, cfg, device="cuda", sampler=None, gates=True,
                      problems=None):
     """One run_incremental, its wall time, and the gates of
     tests/test_pipeline.py; returns (reconstruction, seconds, ate, rmse).
     ``problems``: a list that receives every problem the run hands to its
-    BA solve (window and full), as the solve received it."""
-    from pysfm_tpu_torch.pipeline import incremental, run_incremental
+    BA solve (``_recording_ba``)."""
+    from pysfm_tpu_torch.pipeline import run_incremental
     from pysfm_tpu_torch.utils import metrics
 
     uv, vis, intr, truth = table
-    solve = incremental.solve
-    if problems is not None:
-        def recording_solve(prob, config):
-            problems.append(prob)
-            return solve(prob, config)
-        incremental.solve = recording_solve
-    try:
+    with contextlib.nullcontext() if problems is None else _recording_ba(problems):
         rec, secs = _timed(lambda: run_incremental(uv, vis, intr, "pose", cfg, device=device,
                                                    sampler=sampler))
-    finally:
-        incremental.solve = solve
     ate = _ate(rec, truth.R, truth.t)
     rmse = metrics.reprojection_rmse(rec.problem)
     if not rec.registered.all():
@@ -1973,6 +2000,127 @@ def _pixel_keys(xy: torch.Tensor) -> np.ndarray:
     return (p[:, 1] * 100_000 + p[:, 0]).numpy()
 
 
+# The runnable examples of pysfm_tpu_torch/examples, each under its own gate.
+def _expected_bal_example(out) -> dict:
+    """The pcg kernels' launches that the bal example's three solves imply
+    from their LM/CG logs: 8 iterations, 8 resumed from the checkpoint with
+    the CG warm start, 16 uninterrupted."""
+    parts = [_expected_launches(out["stats"], out["config"]),
+             _expected_launches(out["stats_resumed"], out["config"]),
+             _expected_launches(out["stats_full"], out["config_full"])]
+    return {k: sum(part[k] for part in parts) for k in parts[0]}
+
+
+def phase_examples(smi) -> dict:
+    """The four examples of ``pysfm_tpu_torch/examples`` on the card, each
+    through its ``run()`` and under its own gate: ``two_view_ba`` (one
+    projection-kernel launch an LM iteration), ``incremental_sfm`` (one an
+    LM iteration of each BA solve), ``bal_checkpoint_resume`` with the pcg
+    kernels (launches equal to the three solves' LM/CG logs) and on the JAX
+    script's literal route (no kernel), and ``distributed_ba`` as a world of
+    one rank over NCCL.  Each example's counts are set to 0 just before it
+    and read just after; then its kernels are held to their plain versions
+    on its own problems.  Returns {kernel: launches on the phase}."""
+    from pysfm_tpu_torch.examples import (
+        bal_checkpoint_resume,
+        distributed_ba,
+        incremental_sfm,
+        two_view_ba,
+    )
+    from pysfm_tpu_torch.problem import cm
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
+    from pysfm_tpu_torch.solver.lm import make_grouped_ops
+
+    counts = dict.fromkeys(("proj_cm",) + SPMV_KERNELS, 0)
+    t_phase = time.perf_counter()
+
+    _reset_counts()
+    out, secs = _timed(two_view_ba.run)
+    n, launches = out["n_iters"], proj.LAUNCHES
+    if launches != n or any(spmv.LAUNCHES.values()):
+        raise AssertionError(f"examples two_view_ba: projection kernel launched {launches} "
+                             f"times in {n} LM iterations; pcg kernels {spmv.LAUNCHES}")
+    counts["proj_cm"] += launches
+    gate = 2.0 * two_view_ba.NOISE_PX
+    if not out["rmse"] < gate:
+        raise AssertionError(f"examples two_view_ba: RMSE {out['rmse']:.4f} px (gate {gate})")
+    errs = [_proj_vs_plain_cm("examples two_view_ba", cm.from_problem(q))[0]
+            for q in (out["problem"], out["solved"])]
+    print(f"[examples] two_view_ba: {out['n_cameras']} cams / {out['n_points']} pts / "
+          f"{out['n_obs']} obs, cost {out['cost0']:.2f} -> {out['cost']:.4f} in {n} iters "
+          f"({out['accepted']} accepted), RMSE {out['rmse']:.4f} px (gate < {gate}); "
+          f"{launches} projection-kernel launches == LM iterations; kernel == plain on the "
+          f"initial and solved problems, both branches, max abs err {max(errs):.3e}; "
+          f"{secs:.3f} s | {smi}")
+
+    _reset_counts()
+    problems, iters = [], []
+    with _recording_ba(problems, iters):
+        out, secs = _timed(incremental_sfm.run)
+    rec, launches = out["rec"], proj.LAUNCHES
+    if (launches != sum(iters) or len(iters) != len(rec.stats["ba_costs"])
+            or any(spmv.LAUNCHES.values())):
+        raise AssertionError(f"examples incremental_sfm: projection kernel launched {launches} "
+                             f"times for BA solves of {iters} LM iterations; pcg kernels "
+                             f"{spmv.LAUNCHES}")
+    counts["proj_cm"] += launches
+    if not (rec.registered.all() and out["ate"] < incremental_sfm.ATE_GATE):
+        raise AssertionError(f"examples incremental_sfm: registered {out['registered']}/"
+                             f"{out['n_frames']}, ATE {out['ate']:.3e} "
+                             f"(gate {incremental_sfm.ATE_GATE})")
+    held = _kernel_on_path("examples incremental_sfm", problems + [rec.problem])
+    print(f"[examples] incremental_sfm: registered {out['registered']}/{out['n_frames']} "
+          f"frames, {out['n_points']} points, ATE {out['ate']:.5f} (gate < "
+          f"{incremental_sfm.ATE_GATE}), RMSE {out['rmse']:.3f} px; {len(iters)} BA solves of "
+          f"{sum(iters)} LM iterations, {launches} projection-kernel launches; {held}; "
+          f"{secs:.3f} s | {smi}")
+
+    for grouped in (None, False):
+        _reset_counts()
+        out, secs = _timed(lambda: bal_checkpoint_resume.run(grouped=grouped))
+        got = dict(spmv.LAUNCHES)
+        expected = (_expected_bal_example(out) if out["grouped"]
+                    else dict.fromkeys(SPMV_KERNELS, 0))
+        if got != expected or proj.LAUNCHES:
+            raise AssertionError(f"examples bal_checkpoint_resume (kernels {out['grouped']}): "
+                                 f"launches {got} (proj {proj.LAUNCHES}), expected {expected}")
+        for k, v in got.items():
+            counts[k] += v
+        c_res, c_full = out["c_resumed"], out["c_full"]
+        rel = abs(c_res - c_full) / abs(c_full)
+        if not rel <= bal_checkpoint_resume.RTOL:
+            raise AssertionError(f"examples bal_checkpoint_resume (kernels {out['grouped']}): "
+                                 f"resumed {c_res} vs uninterrupted {c_full}, rel {rel:.3e}")
+        held = "no kernel on the JAX script's literal route"
+        if out["grouped"]:
+            cmp = cm.from_problem(out["problem"])
+            errs, _ = _kernels_vs_plain(cmp, make_grouped_ops(cmp))
+            held = (f"launches {got} == the three solves' LM/CG logs; kernels == plain on the "
+                    f"example's problem, max abs err {errs}")
+        print(f"[examples] bal_checkpoint_resume, kernels {out['grouped']}: {out['n_cameras']} "
+              f"cams / {out['n_points']} pts / {out['n_obs']} obs, cost {out['cost0']:.1f} -> "
+              f"{c_res:.4f} resumed across a checkpoint vs {c_full:.4f} uninterrupted (rel "
+              f"{rel:.3e}, gate {bal_checkpoint_resume.RTOL}); CG "
+              f"{out['stats'].cg_iters.tolist()} + {out['stats_resumed'].cg_iters.tolist()}; "
+              f"{held}; {secs:.3f} s | {smi}")
+
+    _reset_counts()
+    out, secs = _timed(lambda: distributed_ba.run(nproc=1, timeout=DIST_TIMEOUT))
+    if any(spmv.LAUNCHES.values()) or proj.LAUNCHES:
+        raise AssertionError(f"examples distributed_ba: launches {spmv.LAUNCHES} (proj "
+                             f"{proj.LAUNCHES}); its route passes no grouped ops")
+    if not out["rel"] < distributed_ba.RTOL:
+        raise AssertionError(f"examples distributed_ba: deviation {out['rel']:.2e} "
+                             f"(gate {distributed_ba.RTOL})")
+    cd = out["costs"]
+    print(f"[examples] distributed_ba --nproc 1 (NCCL, cuda:0): cost {cd[0]:.1f} -> "
+          f"{cd[-1]:.4f}; max rel deviation vs the single-device trajectory {out['rel']:.2e} "
+          f"(gate < {distributed_ba.RTOL}); no kernel (the example passes no grouped ops); "
+          f"spawned, solved and joined in {secs:.3f} s | {smi}")
+    print(f"[examples] phase {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port has no CPU fallback here",
@@ -2006,12 +2154,13 @@ def main() -> int:
     scale_launches = phase_incremental_scale(smi)
     scale_counts = dict(spmv.LAUNCHES)
     phase_images(smi)
+    examples = phase_examples(smi)
 
     # Launches on each main path, each read just after the path ran with
     # the counts set to 0 just before it.
     proj_paths = {"main": launches, "std": std["launches"], "incremental": incr_launches,
                   "incremental scale": scale_launches, "dist venice": dist_venice["proj_cm"],
-                  "dist ranks": dist_ranks["proj_cm"]}
+                  "dist ranks": dist_ranks["proj_cm"], "examples": examples["proj_cm"]}
     kernels = [{
         "name": "proj_cm",
         "route": "cuda",
@@ -2028,7 +2177,7 @@ def main() -> int:
         paths = {"pcg main": pcg_counts[name], "pcg venice": venice_counts[name],
                  "bal io": io_counts[name], "incremental": incr_counts[name],
                  "incremental scale": scale_counts[name], "dist venice": dist_venice[name],
-                 "dist ranks": dist_ranks[name]}
+                 "dist ranks": dist_ranks[name], "examples": examples[name]}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": sum(paths.values()),
                         "launches_by_path": paths,

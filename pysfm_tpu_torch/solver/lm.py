@@ -69,6 +69,10 @@ class LMStats:
                               # start for a resumed solve (zeros on the
                               # dense route)
 
+    def replace(self, **changes) -> "LMStats":
+        """A copy with ``changes`` (the JAX struct's ``replace``)."""
+        return dataclasses.replace(self, **changes)
+
 
 def solve(
     prob,

@@ -494,11 +494,13 @@ def solve_step_pcg(
     pt_obs_maskT: Optional[torch.Tensor] = None,
     cam_obs: Optional[torch.Tensor] = None,
     cam_obs_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One damped step in the standard layout: ``(dc [C, CP], dp [P, 3])``."""
+    """One damped step in the standard layout: ``(dc [C, CP], dp [P, 3])``;
+    ``group`` as in :func:`solve_step_pcg_cm3`."""
     dc, dp3, _ = solve_step_pcg_cm3(
         eqs, lam, obs_cam, obs_pt, tol=tol, max_iters=max_iters,
         pt_obsT=pt_obsT, pt_obs_maskT=pt_obs_maskT,
-        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask,
+        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask, group=group,
     )
     return dc, dp3.T

@@ -207,11 +207,11 @@ def cost_scale(p, obs_chunk: int = 0) -> torch.Tensor:
 
 
 def predicted_reduction_scale(
-    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor
+    eqs: ScaleEqs, lam, dc: torch.Tensor, dp: torch.Tensor, group=None
 ) -> torch.Tensor:
     """:func:`predicted_reduction_scale_cm` for a standard-layout point step
     ``dp [P, 3]``."""
-    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T)
+    return predicted_reduction_scale_cm(eqs, lam, dc, dp.T, group)
 
 
 def predicted_reduction_scale_cm(
