@@ -25,7 +25,18 @@ Phases (any failure raises and the script exits non-zero):
    ``solver/schur.py``) on the same scene, checked against the cm route on
    the card and, on a small scene, against the f64 std route on the host;
    the two-view scene of ``examples/two_view_ba.py`` to its noise floor;
-6. [spmv kernels] the six kernels of the pcg route (K_E ``build_eqs``,
+6. [dense graph] the dense loop as ``solve()`` runs it on the card, one
+   iteration replayed from a cached CUDA graph, against the eager loop
+   (``lm._solve_std_eager``) bit for bit (cost, damping, gradient and step
+   logs, accept flags, iteration count, final R, t, intr, X): the main
+   scene in the cm and the std layouts, graphed (the first solve
+   captures) and eager in turns; two same-shape problems back to back,
+   each equal to its own eager solve and the first unchanged by the
+   second; ``tol_cost_rel=1e-6`` with ``renormalize_every=2``, which stops
+   early, at every prefix of its iterations; one projection-kernel launch
+   per replayed iteration; capture time, first against replayed solve, ms
+   per LM iteration graphed and eager;
+7. [spmv kernels] the six kernels of the pcg route (K_E ``build_eqs``,
    K_D ``payload_b``, K_C ``cost``, ``hcpT_x``, ``hcp_w``, K_H
    ``precond_diag``) against their plain versions on small ragged scenes
    (also one with C > 128): 3 camera models x 3 robust kernels, f32 and bf16
@@ -42,7 +53,7 @@ Phases (any failure raises and the script exits non-zero):
    scene built on the same observations (``synthetic.plan_edge_scene``);
    two launches must agree bit for bit, f64 tensors must be refused, and
    ``hcp_w`` and K_H without ``b_cam`` must raise;
-7. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
+8. [pcg main] the pcg path: ``solve(cm.from_problem(p), LMConfig(solver=
    "pcg", cg_forcing="ew", ...), gops=make_grouped_ops(...))`` on the
    bench.py headline scene (the same 50 / 10k scene), 30 iterations, with
    the exact launch count of every kernel checked against the LM and CG
@@ -51,41 +62,42 @@ Phases (any failure raises and the script exits non-zero):
    solve (device idle share) and each kernel's time at that shape (with
    ``b_cam`` bitwise ``b_rows[:, cam_perm]`` there), beside the bound and
    the empty kernel's time;
-8. [proj venice] the projection kernel at the Venice scene's M (~5.0M
+9. [proj venice] the projection kernel at the Venice scene's M (~5.0M
    observations, std layout; no dense route solves at that size): each
    branch against its plain version and bitwise against itself, the
    agreement between the branches counted, and timed;
-9. [pcg venice] the same route on the Venice-scale synthetic BAL scene
+10. [pcg venice] the same route on the Venice-scale synthetic BAL scene
    (1712 cameras, 1M points, ~5M observations): kernels against plain at
    that shape, their times, 18 LM iterations with bench/venice.py's
    settings, and a torch.profiler trace of them;
-10. [bal io] the BAL-file path of ``bench/io_scale.py`` (428 cameras, 125k
+11. [bal io] the BAL-file path of ``bench/io_scale.py`` (428 cameras, 125k
    points, camera model "bal"): ``save_bal``, ``load_bal`` onto the card
    through the native tokenizer, a segmented pcg solve with the kernels,
    and a checkpoint at the half whose resumed cost log must equal the tail
    of the straight solve to 1e-5;
-11. [incremental] BASELINE config 2 as bench.py runs it: an f32 track
+12. [incremental] BASELINE config 2 as bench.py runs it: an f32 track
    table of 10 keyframes and 1k points through ``run_incremental`` on the
    card, twice (frames/s of each run, the fenced stage times), under the
    gates of tests/test_pipeline.py, with at least one projection-kernel
    launch per BA solve; after each run the projection kernel is held to
    its plain version on every problem the run gave its BA solves and on
-   its final problem; the same scene as an f64 table (the plain route, no
-   launch) on the card and on the host, both drawing their minimal sets
+   its final problem; a third run with the eager dense loop, for its
+   frames/s beside the graphed runs'; the same scene as an f64 table (the
+   plain route, no launch) on the card and on the host, both drawing their minimal sets
    from one host generator, which must give the same init pair and PnP
    inlier lists and camera centres within 1e-9;
-12. [incremental scale] bench/incremental_scale.py's scene (50 keyframes,
+13. [incremental scale] bench/incremental_scale.py's scene (50 keyframes,
    2k points, visibility 0.35) as an f32 track table, twice: every frame
    registered, ATE < 2e-2, at least one projection-kernel launch per BA
    solve, the kernel held to its plain version on the run's problems as in
-   11, frames/s and the fenced stage times; then a third run under
+   12, frames/s and the fenced stage times; then a third run under
    torch.profiler for the device's idle share;
-13. [images] tests/test_tracks.py's dot video (6 frames of 160x220)
+14. [images] tests/test_tracks.py's dot video (6 frames of 160x220)
    through ``run_from_images`` on the card under that test's gates, then
    ``detect_and_describe`` + ``match_descriptors`` on a 480x640 frame pair:
    f64 on the card against f64 on the host (the same keypoint sets, xy and
    descriptors within 1e-9), and the f32 time on the card;
-14. [dist venice] (run right after 9, on its scene) the distributed pcg route (``dist.solve_sharded_cm`` with
+15. [dist venice] (run right after 10, on its scene) the distributed pcg route (``dist.solve_sharded_cm`` with
    the kernels on the shard's own ``GroupedOps``) on the Venice-scale scene
    in a world of one rank over NCCL, without and with the camera partition:
    the cost log and CG counts of [pcg venice] (bitwise, or within 1e-6 with
@@ -94,7 +106,7 @@ Phases (any failure raises and the script exits non-zero):
    memory; then ``dist.solve_sharded``'s dense route on the headline scene
    (f32: the projection kernel on the shard, held to plain there, one launch
    an LM iteration, costs within 1e-6 of [main]);
-15. [dist ranks] (run right after 14) two ranks on the one card over gloo with CUDA tensors
+16. [dist ranks] (run right after 15) two ranks on the one card over gloo with CUDA tensors
    (NCCL refuses two ranks on one device), each building only its own shard
    of [bal io]'s scene in the cm layout (~313k observations a rank): f32
    with the kernels, without and with the camera partition, within 1e-3 of
@@ -103,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
    held to their plain versions; each rank's launches against its logs.
    gloo's reduce-scatter and all-gather run as all-reduces
    (``utils/collectives.py``); the phase says so;
-16. [examples] (run last) the four runnable examples of
+17. [examples] (run last) the four runnable examples of
    ``pysfm_tpu_torch/examples`` on the card through their ``run()``, each
    under its own gate: ``two_view_ba`` (RMSE below twice the noise; one
    projection-kernel launch an LM iteration), ``incremental_sfm`` (every
@@ -144,7 +156,9 @@ import warnings
 import numpy as np
 import torch
 
-# The roofline counts are the benchmark's (one source for both scripts).
+# The roofline counts and the timing helpers are the benchmark's (one
+# source for both scripts).
+from bench_torch import run as bench_run
 from bench_torch.roofline import bound, proj_cost, spmv_cost
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -158,9 +172,6 @@ KERNEL_TOL = 1e-4
 # card), and f32 card route against the f64 host route on a small scene.
 COST_RTOL = 1e-3
 N_ITERS = 30
-# Sleep-kernel length that keeps the stream busy while the host enqueues
-# one timed call (~20 ms at H100 clocks).
-SLEEP_CYCLES = 40_000_000
 MAIN_SCENE = dict(
     n_cameras=50, n_points=10_000, noise_px=0.5, outlier_frac=0.05,
     outlier_px=40.0, visibility=0.3, robust="huber", robust_scale=2.0,
@@ -253,13 +264,6 @@ def _import_port():
     sys.path.insert(0, ROOT)
 
 
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
 def phase_env() -> str:
     from pysfm_tpu_torch.solver.kernels import _build
 
@@ -267,7 +271,7 @@ def phase_env() -> str:
         [_build._nvcc(), "--version"], check=True, capture_output=True,
         text=True, timeout=60,
     ).stdout.strip().splitlines()[-1]
-    smi = _smi()
+    smi = bench_run.smi()
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"nvcc: {nvcc} | card: {smi} | devices {torch.cuda.device_count()}")
     return smi
@@ -401,38 +405,16 @@ def phase_kernel_small() -> None:
 
 
 def _device_ms(fn, n=20) -> float:
-    """Median device time of one call, by CUDA events around each of n calls.
-
-    Each call is enqueued behind a sleep kernel, so the device reaches it
-    only after the host has queued all of its launches: the events then time
-    the device's work and not the host's launch overhead (which, for a ~7 us
-    kernel, is the larger of the two). A call whose enqueueing outlasted the
-    sleep (a slow or shared host) is timed again behind a longer sleep.
-    """
-    fn()
-    torch.cuda.synchronize()
-    times, cycles = [], SLEEP_CYCLES
-    for _ in range(n):
-        for _attempt in range(4):
-            s0, s1, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-            s0.record()
-            torch.cuda._sleep(cycles)
-            s1.record()
-            t0 = time.perf_counter()
-            fn()
-            end.record()
-            host_ms = (time.perf_counter() - t0) * 1e3
-            end.synchronize()
-            sleep_ms = s0.elapsed_time(s1)
-            if host_ms < sleep_ms:
-                break
-            cycles = int(cycles * 2 * host_ms / sleep_ms) + 1
-        else:
-            raise AssertionError(
-                f"enqueueing took {host_ms:.2f} ms, longer than the sleep of {sleep_ms:.2f} "
-                "ms four times: the events would time host gaps")
-        times.append(s1.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of one call over n calls, by the benchmark's
+    ``device_ms`` (CUDA events around each call, enqueued behind a sleep
+    kernel so that the events time the device's work and not the host's
+    launch overhead)."""
+    calls = bench_run.KERNEL_CALLS
+    bench_run.KERNEL_CALLS = n
+    try:
+        return bench_run.device_ms(fn)
+    finally:
+        bench_run.KERNEL_CALLS = calls
 
 
 def noop_call():
@@ -496,12 +478,10 @@ def phase_kernel_main(p, smi: str) -> dict:
 
 
 def _timed(fn):
-    """(fn(), seconds), host clock between two synchronizes."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    """(fn(), seconds), host clock between two synchronizes (the
+    benchmark's ``host_ms``)."""
+    out, ms = bench_run.host_ms(fn)
+    return out, ms / 1e3
 
 
 def _solve_timed(p, cfg, gops=None):
@@ -657,6 +637,131 @@ def phase_std(p, smi: str) -> dict:
     print(f"[std] projection kernel, std wrapper (kernel + transposes) at M={p.n_obs}: max abs "
           f"err {err:.3e}; device time {ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}")
     return dict(launches=launches, ms=ms, plain_ms=plain_ms)
+
+
+def _require_same_bits(label, graphed, eager) -> None:
+    """Raise unless a graphed solve equals the eager one bit for bit: the
+    cost, damping and gradient logs, the accept flags, the iteration count
+    and the final R, t, intr and X; the message names what differs and by
+    how much."""
+    (pg, sg), (pe, se) = graphed, eager
+    pairs = [(f, getattr(sg, f), getattr(se, f)) for f in
+             ("costs", "lams", "accepted", "grad_inf", "step_norms", "n_iters", "lam_next",
+              "nu_next")] + [(k, getattr(pg, k), getattr(pe, k)) for k in ("R", "t", "intr", "X")]
+    bad = {}
+    for name, a, b in pairs:
+        if a.is_floating_point():
+            a, b = torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0)
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad[name] = (float((a.double() - b.double()).abs().max())
+                         if a.shape == b.shape else f"shapes {tuple(a.shape)} {tuple(b.shape)}")
+    if bad:
+        raise AssertionError(f"dense graph {label}: graphed != eager bit for bit, max abs "
+                             f"difference by output {bad}")
+
+
+def _clone_result(res):
+    p, st = res
+    return (p.replace(**{k: getattr(p, k).clone() for k in ("R", "t", "intr", "X")}),
+            st.replace(**{f.name: getattr(st, f.name).clone()
+                          for f in dataclasses.fields(st)}))
+
+
+def phase_dense_graph(p, smi: str) -> int:
+    """The dense loop replayed as a CUDA graph (``solve()`` on the card)
+    against the eager loop (``lm._solve_std_eager``), bit for bit: the
+    quickstart scene in the cm and the std layouts, each graphed solve (the
+    first captures, the next replays) and eager solve in turns; two
+    same-shape problems back to back (stale static inputs), the first
+    result read again after the second (aliasing); an early stop with
+    ``renormalize_every=2`` at every prefix of its iterations; one
+    projection-kernel launch an LM iteration under replay.  Returns the
+    launches of its graphed solves."""
+    from pysfm_tpu_torch.solver import LMConfig, lm, solve
+    from pysfm_tpu_torch.solver.kernels import proj, spmv
+
+    launches = 0
+
+    def graphed(q, cfg):
+        nonlocal launches
+        _reset_counts()
+        res, secs = _timed(lambda: solve(q, cfg))
+        n = int(res[1].n_iters)
+        if proj.LAUNCHES != n or any(spmv.LAUNCHES.values()):
+            raise AssertionError(f"dense graph: the projection kernel launched {proj.LAUNCHES} "
+                                 f"times in {n} replayed iterations, pcg kernels {spmv.LAUNCHES}")
+        launches += proj.LAUNCHES
+        return res, secs
+
+    def eager(q, cfg):
+        return _timed(lambda: lm._solve_std_eager(q, cfg))
+
+    lm._GRAPHS.clear()
+    for layout in ("cm", "std"):
+        cfg = LMConfig(layout=layout, max_iters=N_ITERS, **NO_TOL)
+        first, t_first = graphed(p, cfg)
+        capture_ms = lm._GRAPHS[lm._graph_key(p, cfg)].capture_ms
+        ref, _ = eager(p, cfg)
+        _require_same_bits(f"{layout} first solve", first, ref)
+        t_graph, t_eager = [], []
+        for turn in range(3):   # graphed, eager, eager, graphed, graphed, eager
+            for route in (("graph", "eager") if turn % 2 == 0 else ("eager", "graph")):
+                if route == "graph":
+                    res, secs = graphed(p, cfg)
+                    t_graph.append(secs)
+                else:
+                    res, secs = eager(p, cfg)
+                    t_eager.append(secs)
+                _require_same_bits(f"{layout} {route} turn {turn}", res, ref)
+        ms_g, ms_e = (1e3 * statistics.median(t) / N_ITERS for t in (t_graph, t_eager))
+        print(f"[dense graph] {layout}, M={p.n_obs}, {N_ITERS} iterations: graphed == eager bit "
+              f"for bit (cost, lam, grad and step logs, accept flags, n_iters, R, t, intr, X) "
+              f"in 4 graphed (the first captures) and 4 eager solves; capture + instantiate "
+              f"{capture_ms:.1f} ms, first solve (eager first iteration, capture) "
+              f"{1e3 * t_first:.1f} ms against a "
+              f"replayed solve {1e3 * min(t_graph):.1f} ms; ms per LM iteration (median of 3, "
+              f"in turns) graphed {ms_g:.4f}, eager {ms_e:.4f}; {N_ITERS} projection-kernel "
+              f"launches per replayed solve | {smi}")
+
+    # Two same-shape problems from different seeds, back to back.
+    cfg = LMConfig(max_iters=N_ITERS, **NO_TOL)
+    gen = torch.Generator(device=p.device).manual_seed(7)
+    q = p.replace(
+        X=p.X + 0.05 * torch.randn(p.X.shape, generator=gen, device=p.device),
+        obs_uv=p.obs_uv + 0.5 * torch.randn(p.obs_uv.shape, generator=gen, device=p.device))
+    if lm._graph_key(q, cfg) != lm._graph_key(p, cfg):
+        raise AssertionError("dense graph: the second problem does not share the first's graph")
+    res_p, _ = graphed(p, cfg)
+    kept = _clone_result(res_p)
+    res_q, _ = graphed(q, cfg)
+    _require_same_bits("second problem", res_q, eager(q, cfg)[0])
+    _require_same_bits("first problem after the second", res_p, kept)
+    _require_same_bits("first problem", res_p, eager(p, cfg)[0])
+    if torch.equal(res_p[1].costs, res_q[1].costs):
+        raise AssertionError("dense graph: two problems gave the same cost log")
+
+    # An early stop with renormalization: every prefix of its iterations.
+    early = LMConfig(max_iters=N_ITERS, renormalize_every=2, tol_cost_rel=1e-6)
+    res, _ = graphed(p, early)
+    n = int(res[1].n_iters)
+    _require_same_bits("early stop", res, eager(p, early)[0])
+    if not 2 <= n < N_ITERS:
+        raise AssertionError(f"dense graph: the early-stop solve ran {n} iterations")
+    for m in range(1, n + 1):
+        cfg_m = dataclasses.replace(early, max_iters=m)
+        _require_same_bits(f"early stop, prefix {m}", graphed(p, cfg_m)[0], eager(p, cfg_m)[0])
+    unrenormalized, _ = graphed(p, dataclasses.replace(early, renormalize_every=0))
+    if torch.equal(unrenormalized[0].R, res[0].R):
+        raise AssertionError("dense graph: renormalize_every=2 left R as without it")
+    print(f"[dense graph] two same-shape problems (the second's X and uv perturbed from a seed) "
+          f"back to back: each == its eager solve bit for bit, the first unchanged by the "
+          f"second; tol_cost_rel=1e-6, renormalize_every=2: stopped after {n} of {N_ITERS} "
+          f"iterations, == eager bit for bit after each of iterations 1-{n} (renormalized "
+          f"after iterations 2, 4, ... where accepted), R differs from the solve without "
+          f"renormalization; graphs cached {len(lm._GRAPHS)}; "
+          f"projection-kernel launches == replayed iterations in every graphed solve "
+          f"({launches} in the phase) | {smi}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1702,6 +1807,21 @@ def _ate(rec, R_gt, t_gt) -> float:
 
 
 @contextlib.contextmanager
+def _eager_dense_loop():
+    """While open, ``solve()`` runs the dense loop eagerly on the card
+    (``lm._solve_std_eager`` in place of the graphed loop)."""
+    from pysfm_tpu_torch.solver import lm
+
+    graphed = lm._solve_std_graphed
+    lm._solve_std_graphed = lambda prob, config, lam_init=None, nu_init=None: (
+        lm._solve_std_eager(prob, config, lam_init, nu_init))
+    try:
+        yield
+    finally:
+        lm._solve_std_graphed = graphed
+
+
+@contextlib.contextmanager
 def _recording_ba(problems, iters=None):
     """While open, every problem an incremental run hands to its BA solve
     (window and full) goes into ``problems`` as the solve received it, and
@@ -1808,6 +1928,8 @@ def phase_incremental(smi) -> int:
         path_launches += n_launch
         held = _kernel_on_path(f"incremental f32 run {k + 1}", problems + [rec.problem])
         runs.append((rec, secs, ate, rmse, n_ba, n_launch, held))
+    with _eager_dense_loop():
+        _, secs_eager, _, _ = _incremental_run("incremental f32 eager loop", table, cfg)
     table64 = _track_table(10, 1000, 0.85, np.float64)
     f32_launches = proj.LAUNCHES
     out = {}
@@ -1834,6 +1956,9 @@ def phase_incremental(smi) -> int:
               f"{rec.stats['init_pair']}, {n_ba} BA solves, {n_launch} projection-kernel "
               f"launches; {held} | {smi}")
     print(f"[incremental] stage seconds of run 2 (fenced): {runs[1][0].stats['timings_s']}")
+    print(f"[incremental] frames/s with the dense loop graphed: run 1 {F / runs[0][1]:.3f} "
+          f"(it captures the BA buckets' graphs), run 2 {F / runs[1][1]:.3f}; with the eager "
+          f"loop, run 3 {F / secs_eager:.3f} | {smi}")
     print(f"[incremental] f64 table, one host generator's draws: card and host init pair "
           f"{rc.stats['init_pair']}, registered {int(rc.registered.sum())} and "
           f"{int(rh.registered.sum())}, pnp inlier lists equal, ATE {ate_c:.3e} and "
@@ -2086,6 +2211,7 @@ def main() -> int:
     launches, main_costs = phase_main(p)
     phase_speed(p, smi)
     std = phase_std(p, smi)
+    graph_launches = phase_dense_graph(p, smi)
     phase_spmv_small()
     pcg_stats, pcg_counts = phase_pcg_main(smi)
     proj_venice = phase_proj_venice(smi)
@@ -2103,7 +2229,8 @@ def main() -> int:
 
     # Launches on each main path, each read just after the path ran with
     # the counts set to 0 just before it.
-    proj_paths = {"main": launches, "std": std["launches"], "incremental": incr_launches,
+    proj_paths = {"main": launches, "std": std["launches"], "dense graph": graph_launches,
+                  "incremental": incr_launches,
                   "incremental scale": scale_launches, "dist venice": dist_venice["proj_cm"],
                   "dist ranks": dist_ranks["proj_cm"], "examples": examples["proj_cm"]}
     kernels = [{

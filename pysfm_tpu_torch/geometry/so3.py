@@ -1,8 +1,10 @@
 """SO(3) — rotation group operations, batched.
 
 Port of :mod:`pysfm_tpu.geometry.so3`: Rodrigues exp with the small-angle
-Taylor branch, quaternion-based log, and SVD re-orthonormalization.  All
-functions broadcast over leading batch dimensions.
+Taylor branch, quaternion-based log, and SVD re-orthonormalization (with
+an SVD-free variant for near-rotations, :func:`normalize_near`, which the
+dense LM loop uses inside its CUDA graph).  All functions broadcast over
+leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -127,3 +129,27 @@ def normalize(R: torch.Tensor) -> torch.Tensor:
     # Flip the last singular direction if the product would be a reflection.
     fix = torch.cat([torch.ones_like(R[..., :2, 0]), det[..., None]], dim=-1)
     return xp.matmul(u * fix[..., None, :], vt)
+
+
+# Newton steps of normalize_near: the error |R^T R - I| squares (and
+# halves) each step, so three take 1e-2 below f64 rounding.
+_POLAR_STEPS = 3
+
+
+def normalize_near(R: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize a near-rotation (``|R^T R - I|`` up to ~1e-2, and
+    ``det R > 0``) by Newton's iteration for the polar factor,
+    ``R <- (R + R^-T) / 2``, with ``R^-T`` from cross products
+    (:data:`_POLAR_STEPS` steps).
+
+    For such R the polar factor is :func:`normalize`'s result, to rounding.
+    On CUDA ``torch.linalg.svd`` reads its convergence flag on the host,
+    which a CUDA graph cannot capture; this takes elementwise kernels
+    only."""
+    for _ in range(_POLAR_STEPS):
+        r0, r1, r2 = R[..., 0, :], R[..., 1, :], R[..., 2, :]
+        cof = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                           torch.linalg.cross(r0, r1)], dim=-2)
+        det = torch.sum(r0 * cof[..., 0, :], dim=-1)
+        R = 0.5 * (R + cof / det[..., None, None])
+    return R
